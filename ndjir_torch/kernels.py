@@ -24,7 +24,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"scatter_add_rows": "scatter_add_rows.cu"}
+SOURCES = {"scatter_add_rows": "scatter_add_rows.cu",
+           "fold_octa_cotangent": "fold_octa_cotangent.cu"}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

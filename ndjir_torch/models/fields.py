@@ -5,8 +5,13 @@ Counterpart of ``ndjir_tpu/models/fields.py``.  Every network is a pair
 conf) -> out`` over a plain dict of tensors whose keys are the reference's
 parameter scopes (``geometric-network/affine-00/W`` ...), with (in, out)
 affine weights, so params convert 1:1 from the reference
-(:mod:`ndjir_torch.bridge`).  The full model is :func:`init_model`.  MLPs run
-in float32 (the port's precision opt-ins are ROADMAP A13).
+(:mod:`ndjir_torch.bridge`).  The full model is :func:`init_model`.
+
+``precision.mlp_dtype=bfloat16`` runs every affine layer on bf16 operands
+with f32 products and sums, the bias added in f32 and one rounding to the
+stored dtype: bf16 for hidden activations, f32 for each network's last
+layer (reference fields.py:52-72).  ``precision.grid_dtype=bfloat16`` keeps
+the voxel table in bf16; everything else stays f32.
 """
 
 from __future__ import annotations
@@ -22,18 +27,48 @@ from ndjir_torch.ops.activations import (
     softplus,
 )
 from ndjir_torch.ops.encoding import pe_dim, positional_encoding
-from ndjir_torch.ops.grid import GridEncoding
+from ndjir_torch.ops.grid import (
+    GridEncoding,
+    use_octa_layout,
+    voxel_gather_multi,
+    voxel_interp_octa,
+    voxel_tv_octa,
+)
 
 Params = Dict[str, Any]
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _precision(conf, key: str) -> torch.dtype:
+    """``conf.precision.<key>`` as a torch dtype (float32 without the
+    section); raises for a dtype the reference does not run."""
+    name = conf.precision.get(key, "float32") if "precision" in conf \
+        else "float32"
+    if name not in _DTYPES:
+        raise ValueError(f"precision.{key}={name!r}: the port runs "
+                         f"{' or '.join(_DTYPES)}")
+    return _DTYPES[name]
+
 
 def check_precision(conf) -> None:
-    """The port runs MLPs and grids in float32 only (ROADMAP A13)."""
-    p = conf.get("precision")
-    if p is not None and (p.mlp_dtype, p.grid_dtype) != ("float32", "float32"):
-        raise NotImplementedError(
-            f"precision {p.mlp_dtype}/{p.grid_dtype} is not ported yet "
-            "(ROADMAP A13: precision opt-ins); use float32/float32")
+    """Raise for a precision the port does not run."""
+    _precision(conf, "mlp_dtype")
+    _precision(conf, "grid_dtype")
+
+
+def _compute_dtype(conf) -> Optional[torch.dtype]:
+    """The affine layers' operand dtype: None (f32 throughout) or bf16."""
+    d = _precision(conf, "mlp_dtype")
+    return None if d == torch.float32 else d
+
+
+def param_dtype(path, conf) -> torch.dtype:
+    """The dtype :func:`init_model` gives the leaf at key ``path``: the
+    voxel table in ``precision.grid_dtype``, every other leaf f32."""
+    if tuple(path) == ("geometric-network", "grid", "F"):
+        return _precision(conf, "grid_dtype")
+    return torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -65,12 +100,54 @@ def _normalized_W(p: Params) -> torch.Tensor:
     return W
 
 
-def affine_apply(p: Params, h: torch.Tensor) -> torch.Tensor:
-    """y = h @ W + b (W optionally weight-normalized per output column)."""
-    return h @ _normalized_W(p) + p["b"]
+class _MatmulBf16(torch.autograd.Function):
+    """a (n, k) @ b (k, m) for bf16 a and b on the card: one cuBLAS product
+    with f32 output (``torch.mm(..., out_dtype=float32)``), products exact
+    and sums in f32.  The backward is the plain form's, in f32 and itself
+    differentiable, for the eikonal double backward."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.float().t()).to(a.dtype) \
+            if ctx.needs_input_grad[0] else None
+        gb = (a.float().t() @ g).to(b.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return ga, gb
 
 
-def affine_apply_split(p: Params, parts) -> torch.Tensor:
+def _matmul(h: torch.Tensor, W: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """h (..., k) @ W (k, m) in f32.  With ``compute_dtype`` both operands
+    are first rounded to it and the products summed in f32: on the CPU as
+    an f32 product of the rounded values (exact products), on the card as
+    an f32-output bf16 GEMM.  ``torch.matmul`` on bf16 operands would
+    round the sums to bf16 before the bias is added, a second rounding
+    the reference does not make (fields.py:71-72)."""
+    if compute_dtype is None:
+        return h @ W
+    h, W = h.to(compute_dtype), W.to(compute_dtype)
+    if h.is_cuda:
+        y = _MatmulBf16.apply(h.reshape(-1, h.shape[-1]), W)
+        return y.reshape(*h.shape[:-1], W.shape[-1])
+    return h.float() @ W.float()
+
+
+def affine_apply(p: Params, h: torch.Tensor, compute_dtype=None,
+                 out_dtype=torch.float32) -> torch.Tensor:
+    """y = h @ W + b (W optionally weight-normalized per output column),
+    products summed in f32, the bias added in f32, one rounding to
+    ``out_dtype``."""
+    y = _matmul(h, _normalized_W(p), compute_dtype) + p["b"]
+    return y.to(out_dtype)
+
+
+def affine_apply_split(p: Params, parts, compute_dtype=None,
+                       out_dtype=torch.float32) -> torch.Tensor:
     """Affine over the conceptual concat of ``parts`` without building it:
     each part multiplies its own row block of W and the products add.  A
     part with a size-1 axis (a per-pixel input against per-sample ones) is
@@ -80,12 +157,12 @@ def affine_apply_split(p: Params, parts) -> torch.Tensor:
     for t in parts:
         if t is None:
             continue
-        d = t @ W[off:off + t.shape[-1]]
+        d = _matmul(t, W[off:off + t.shape[-1]], compute_dtype)
         off += t.shape[-1]
         y = d if y is None else y + d
     if off != W.shape[0]:
         raise ValueError(f"parts are {off} wide, W has {W.shape[0]} rows")
-    return y + p["b"]
+    return (y + p["b"]).to(out_dtype)
 
 
 def _mlp_init(gen, dims, use_wn, device, name_fmt="affine-{:02d}",
@@ -103,14 +180,20 @@ def _mlp_init(gen, dims, use_wn, device, name_fmt="affine-{:02d}",
     return params
 
 
-def _mlp_apply(params, h, n_layers, act, name_fmt="affine-{:02d}",
-               name_offset=0, last_offset=None, start=0):
+def _mlp_apply(params, h, n_layers, act, compute_dtype=None,
+               name_fmt="affine-{:02d}", name_offset=0, last_offset=None,
+               start=0):
     """``start``: resume from layer ``start`` (the caller applied the
-    earlier layers, e.g. via :func:`affine_apply_split`)."""
+    earlier layers, e.g. via :func:`affine_apply_split`).  Hidden
+    activations are stored in ``compute_dtype`` (f32 without it), the last
+    layer's output in f32."""
     last_offset = name_offset if last_offset is None else last_offset
+    hid = torch.float32 if compute_dtype is None else compute_dtype
     for l in range(start, n_layers - 1):
-        h = act(affine_apply(params[name_fmt.format(l + name_offset)], h))
-    return affine_apply(params[name_fmt.format(n_layers - 1 + last_offset)], h)
+        h = act(affine_apply(params[name_fmt.format(l + name_offset)], h,
+                             compute_dtype, out_dtype=hid))
+    return affine_apply(params[name_fmt.format(n_layers - 1 + last_offset)],
+                        h, compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +233,9 @@ def init_geometric(gen, conf, device="cuda") -> Params:
 
     params: Params = {}
     if enc.out_dim > 0:
-        params["grid"] = enc.init(gen, device=device)
+        params["grid"] = enc.init(
+            gen, dtype=param_dtype(("geometric-network", "grid", "F"), conf),
+            device=device)
 
     zeros = lambda n: torch.zeros((n,), device=device)  # noqa: E731
     if not g.geometric_init:
@@ -225,20 +310,23 @@ def _geometric_mlp(params: Params, pe_x: torch.Tensor, vfeat, conf):
     L = g.layers
     act = get_activation(g.act)
     skip_layers = tuple(g.skip_layers)
+    cdt = _compute_dtype(conf)
+    hid = torch.float32 if cdt is None else cdt
 
     inputs = pe_x if vfeat is None else torch.cat([pe_x, vfeat], dim=-1)
     h = inputs
     if not g.geometric_init:
         for l in range(L - 1):
-            h = affine_apply(params[f"affine-{l:02d}"], h)
+            h = affine_apply(params[f"affine-{l:02d}"], h, cdt, out_dtype=hid)
             if l in skip_layers:
-                h = torch.cat([h, pe_x], dim=-1)
+                h = torch.cat([h, pe_x.to(h.dtype)], dim=-1)
             h = act(h)
-        h = affine_apply(params[f"affine-{L - 1:02d}"], h)
+        h = affine_apply(params[f"affine-{L - 1:02d}"], h, cdt)
     else:
         for l in range(L):
             name = "affine-last" if l == L - 1 else f"affine-{l:02d}"
-            h = affine_apply(params[name], h)
+            h = affine_apply(params[name], h, cdt,
+                             out_dtype=torch.float32 if l == L - 1 else hid)
             if l < L - 1:
                 h = act(h)
                 # the skip concat only follows INTERMEDIATE layers (the
@@ -246,12 +334,53 @@ def _geometric_mlp(params: Params, pe_x: torch.Tensor, vfeat, conf):
                 # network.py:196-224)
                 if (l + 1) in skip_layers and l != 0 \
                         and l not in skip_layers:
-                    h = torch.cat([h, inputs], dim=-1)
+                    h = torch.cat([h, inputs.to(h.dtype)], dim=-1)
                     if g.use_inv_square:
                         h = h / math.sqrt(2)
 
     sdf, feature = h[..., 0:1], h[..., 1:]
     gain = torch.clamp(torch.exp(params["gain"] * 10.0), 1e-6, 5e4)
+    return sdf, feature, gain
+
+
+def geometric_supports_shared_gather(params: Params, conf) -> bool:
+    """Whether the geometric network's grid takes the octa layout, so that
+    several point sets can share one corner gather (and one backward) via
+    :func:`geometric_gather_corners` (reference fields.py:329)."""
+    g = conf.geometric_network
+    if "grid" not in params or g.voxel.type not in ("voxel", "cosine_voxel") \
+            or g.voxel.use_ste:
+        return False
+    F = params["grid"]["F"]
+    return use_octa_layout(F.shape, F.dtype)
+
+
+def _vbox(conf):
+    r = conf.renderer.bounding_sphere_radius
+    return (-r,) * 3, (r,) * 3
+
+
+def geometric_gather_corners(params: Params, x_list, conf):
+    """Octa rows for several point sets from ONE gather; pair with
+    :func:`geometric_apply_corners` (reference fields.py:343)."""
+    return voxel_gather_multi(x_list, params["grid"]["F"], *_vbox(conf))
+
+
+def geometric_apply_corners(params: Params, x: torch.Tensor,
+                            corners: torch.Tensor, conf,
+                            with_tv: bool = False, tv_sym: bool = True):
+    """:func:`geometric_apply` with the grid's octa rows supplied by the
+    caller (reference fields.py:353).  The interpolation weights come from
+    ``x``, so a spatial gradient over this function sees weight arithmetic
+    only; the rows carry the table's gradient through the shared gather."""
+    g = conf.geometric_network
+    kind = "cosine" if g.voxel.type.startswith("cosine_") else "linear"
+    pe_x = positional_encoding(x, g.pe_bands) if g.pe_bands > 0 else x
+    vfeat = voxel_interp_octa(x, corners, params["grid"]["F"].shape,
+                              *_vbox(conf), kind)
+    sdf, feature, gain = _geometric_mlp(params, pe_x, vfeat, conf)
+    if with_tv:
+        return sdf, feature, gain, voxel_tv_octa(corners, x.dtype, tv_sym)
     return sdf, feature, gain
 
 
@@ -272,17 +401,19 @@ def _head_inputs(x, feature, normal, use_feature, use_normal, extra=None):
     return inputs
 
 
-def _head_apply(params, parts, n_layers, act, name_offset=0,
-                last_offset=None):
+def _head_apply(params, parts, n_layers, act, compute_dtype=None,
+                name_offset=0, last_offset=None):
     """Head MLP with a split (concat-free) first affine."""
     last_offset = name_offset if last_offset is None else last_offset
     if n_layers == 1:
         return affine_apply_split(params["affine-{:02d}".format(last_offset)],
-                                  parts)
+                                  parts, compute_dtype)
+    hid = torch.float32 if compute_dtype is None else compute_dtype
     h = act(affine_apply_split(params["affine-{:02d}".format(name_offset)],
-                               parts))
-    return _mlp_apply(params, h, n_layers, act, name_offset=name_offset,
-                      last_offset=last_offset, start=1)
+                               parts, compute_dtype, out_dtype=hid))
+    return _mlp_apply(params, h, n_layers, act, compute_dtype,
+                      name_offset=name_offset, last_offset=last_offset,
+                      start=1)
 
 
 def _in_dim(conf, c, *extra):
@@ -303,7 +434,8 @@ def base_color_apply(params, x, feature, normal, conf):
     parts = _head_inputs(x, feature, normal, c.use_geometric_feature,
                          c.use_normal)
     return torch.sigmoid(_head_apply(params, parts, c.layers,
-                                     get_activation(c.act)))
+                                     get_activation(c.act),
+                                     _compute_dtype(conf)))
 
 
 def init_environment_light(gen, conf, device="cuda") -> Params:
@@ -317,7 +449,8 @@ def environment_light_apply(params, light_dirs, conf):
     c = conf.environment_light_network
     h = positional_encoding(light_dirs, c.pe_bands) if c.pe_bands > 0 \
         else light_dirs
-    h = _mlp_apply(params, h, c.layers, get_activation(c.act))
+    h = _mlp_apply(params, h, c.layers, get_activation(c.act),
+                   _compute_dtype(conf))
     out = get_last_activation(c.act_last, c.inverse_black_degree)(h)
     if c.upper_bound > 0:
         out = torch.clamp(out, 0.0, c.upper_bound)
@@ -339,7 +472,8 @@ def implicit_illumination_apply(params, x, feature, normal, conf):
         return torch.zeros((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
     parts = _head_inputs(x, feature, normal, c.use_geometric_feature,
                          c.use_normal)
-    h = _head_apply(params, parts, c.layers, get_activation(c.act))
+    h = _head_apply(params, parts, c.layers, get_activation(c.act),
+                    _compute_dtype(conf))
     return get_last_activation(c.act_last, c.inverse_black_degree)(h)
 
 
@@ -358,7 +492,8 @@ def soft_visibility_apply(params, x, light_dirs, feature, normal, conf):
         else light_dirs
     parts = _head_inputs(x, feature, normal, c.use_geometric_feature,
                          c.use_normal, extra=pe_l)
-    h = _head_apply(params, parts, c.layers, get_activation(c.act))
+    h = _head_apply(params, parts, c.layers, get_activation(c.act),
+                    _compute_dtype(conf))
     return get_last_activation(c.act_last, c.inverse_black_degree)(h)
 
 
@@ -386,7 +521,8 @@ def photogrammetric_apply(params, x, camloc, view, feature, normal, lv_gain,
         dist2 = torch.sum((x - camloc.reshape(B, 1, 1, 3)) ** 2, dim=-1,
                           keepdim=True)
         parts.append(1.0 / (dist2 + 1e-5))
-    h = _head_apply(params, parts, c.layers, get_activation(c.act))
+    h = _head_apply(params, parts, c.layers, get_activation(c.act),
+                    _compute_dtype(conf))
     return torch.sigmoid(lv_gain * h)
 
 
@@ -405,7 +541,7 @@ def roughness_apply(params, x, feature, normal, conf):
     parts = _head_inputs(x, feature, normal, c.use_geometric_feature,
                          c.use_normal)
     h = _head_apply(params, parts, c.layers, get_activation(c.act),
-                    name_offset=-1, last_offset=0)
+                    _compute_dtype(conf), name_offset=-1, last_offset=0)
     h0, h1 = h[..., 0:1], h[..., 1:2]
     std = softplus(h1)
     r = torch.sigmoid(h0)
@@ -435,7 +571,7 @@ def specular_reflectance_apply(params, x, feature, normal, conf):
     parts = _head_inputs(x, feature, normal, c.use_geometric_feature,
                          c.use_normal)
     h = _head_apply(params, parts, c.layers, get_activation(c.act),
-                    name_offset=-1, last_offset=0)
+                    _compute_dtype(conf), name_offset=-1, last_offset=0)
     # the reference splits (h[..., :-Do], h[..., Do:]): first Do, last Do
     h0, h1 = h[..., :Do], h[..., Do:]
     std = softplus(h1)
@@ -467,10 +603,11 @@ def background_apply(params, x, view, delta, conf):
     delta (B, R, N, 1) -> (alpha, color) (reference: network.py:512-561)."""
     c = conf.background_network
     act = get_activation(c.act)
+    cdt = _compute_dtype(conf)
     B, R, N, _ = x.shape
 
     h = positional_encoding(x, c.pe_bands0) if c.pe_bands0 > 0 else x
-    h = _mlp_apply(params["geometric-network"], h, c.layers0, act)
+    h = _mlp_apply(params["geometric-network"], h, c.layers0, act, cdt)
     density, feature = softplus(h[..., 0:1], beta=100), h[..., 1:]
     alpha = 1.0 - torch.exp(-density * delta)
 
@@ -480,7 +617,7 @@ def background_apply(params, x, view, delta, conf):
         h = torch.cat([x, feature, view, pe_view], dim=-1)
     else:
         h = torch.cat([x, feature, view], dim=-1)
-    h = _mlp_apply(params["lighting-network"], h, c.layers1, act)
+    h = _mlp_apply(params["lighting-network"], h, c.layers1, act, cdt)
     return alpha, torch.sigmoid(h)
 
 

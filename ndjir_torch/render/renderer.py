@@ -8,9 +8,11 @@ visibility x cos + implicit illumination) -> GGX importance-sampled specular
 -> photogrammetric-light composition -> + background.
 
 The normal is ∇ₓ sdf from ``torch.autograd.grad(..., create_graph=True)``,
-so the eikonal term's gradient is a true double backward.  The perturbed
-re-query of the base-color prior is a second, separate grid query (the
-reference's unfused branch, renderer.py:183-188).
+so the eikonal term's gradient is a true double backward.  The base-color
+prior re-queries the geometric network at perturbed points: on an octa
+table both point sets share one grid gather, so the step's backward makes
+one B1 and one B2 launch (reference renderer.py:145-182); otherwise the
+re-query is a second, separate grid query (:183-188).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ from ndjir_torch.models.fields import (
     base_color_apply,
     environment_light_apply,
     geometric_apply,
+    geometric_apply_corners,
+    geometric_gather_corners,
+    geometric_supports_shared_gather,
     implicit_illumination_apply,
     photogrammetric_apply,
     roughness_apply,
@@ -39,13 +44,20 @@ from ndjir_torch.ops.directions import (
 from ndjir_torch.render.sampler import _exclusive_cumprod
 
 
-def sdf_value_and_spatial_grad(params, x, conf, with_tv=False, tv_sym=True):
+def sdf_value_and_spatial_grad(params, x, conf, with_tv=False, tv_sym=True,
+                               corners=None):
     """(sdf, feature, gain, d sdf / d x, tv or None) from one forward; the
-    spatial gradient keeps its graph so it can be differentiated again."""
+    spatial gradient keeps its graph so it can be differentiated again.
+    ``corners``: the points' octa rows, gathered by the caller."""
     x = x.detach().requires_grad_(True)
+    geo = params["geometric-network"]
     with torch.enable_grad():
-        out = geometric_apply(params["geometric-network"], x, conf,
-                              with_tv=with_tv, tv_sym=tv_sym)
+        if corners is None:
+            out = geometric_apply(geo, x, conf, with_tv=with_tv,
+                                  tv_sym=tv_sym)
+        else:
+            out = geometric_apply_corners(geo, x, corners, conf,
+                                          with_tv=with_tv, tv_sym=tv_sym)
         sdf = out[0]
         (grad_x,) = torch.autograd.grad(sdf, x, torch.ones_like(sdf),
                                         create_graph=True)
@@ -110,16 +122,27 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
     # same corner gather when the loss needs it
     want_tv = (conf.geometric_network.voxel.type != "none"
                and conf.train.tv_weight > 0.0)
-    sdf_x_fg, feature_x_fg, gain, grad_x_fg, tv_map = \
-        sdf_value_and_spatial_grad(params, x_fg, conf, with_tv=want_tv,
-                                   tv_sym=conf.train.tv_sym_backward)
     # base-color smoothness pair: re-query the geometric network at
-    # x + noise (reference renderer.py:187-193)
+    # x + noise (reference renderer.py:187-193); on an octa table x_fg and
+    # x_ptb share one gather while the spatial gradient runs over the x_fg
+    # query alone
+    geo = params["geometric-network"]
     Gsz = conf.geometric_network.voxel.grid_size
     r_sphere = conf.renderer.bounding_sphere_radius
     x_ptb = x_fg + cdfs["perturb"] * (math.sqrt(3) * 2 * r_sphere / Gsz)
-    _, feature_ptb, _ = geometric_apply(params["geometric-network"], x_ptb,
-                                        conf)
+    if conf.renderer.get("fuse_perturbed_query", True) \
+            and geometric_supports_shared_gather(geo, conf):
+        corners_fg, corners_ptb = geometric_gather_corners(
+            geo, [x_fg, x_ptb], conf)
+        _, feature_ptb, _ = geometric_apply_corners(geo, x_ptb, corners_ptb,
+                                                    conf)
+    else:
+        corners_fg = None
+        _, feature_ptb, _ = geometric_apply(geo, x_ptb, conf)
+    sdf_x_fg, feature_x_fg, gain, grad_x_fg, tv_map = \
+        sdf_value_and_spatial_grad(params, x_fg, conf, with_tv=want_tv,
+                                   tv_sym=conf.train.tv_sym_backward,
+                                   corners=corners_fg)
 
     # NeuS section-based alpha with annealed iter_cos (renderer.py:55-67)
     car = cos_anneal_ratio

@@ -5,7 +5,7 @@ generation, not part of the differentiated graph: :func:`sample_points` runs
 under ``torch.no_grad()`` (the reference makes it a non-differentiable
 PythonFunction, reference python/sampler.py:24-314).  The coarse-grid
 proposal opt-in (``renderer.proposal_method: coarse_grid``) is not ported
-yet (ROADMAP A13).
+yet (ROADMAP A13); ``renderer.proposal_grid_bf16`` is.
 
 Shapes (B rays-batch, R rays, N0 stratified, M per upsample, U rounds, Nb bg):
   x_fg (B, R, N0+M*U, 3); t_fg (B, R, N0+M*U+1, 1);
@@ -160,12 +160,35 @@ def _merge_sorted(t, sdf, t_new, sdf_new):
     return ts[..., None], torch.gather(sc, 2, perm)[..., None]
 
 
+# the JAX package's bound on the f32 bytes of a grid that the proposal
+# sampler reads as a bf16 copy (sampler.py:214)
+_PROPOSAL_BF16_MAX_BYTES = 600_000_000
+
+
+def _proposal_params(params, conf):
+    """``params`` with the geometric grid read in bf16 when
+    ``renderer.proposal_grid_bf16`` is on and the grid's f32 bytes are at
+    most 600 MB (reference sampler.py:207-219): the copy costs a table
+    read and write, worth it only for a small table.  A bf16 table is
+    used as it is."""
+    geo = params.get("geometric-network", {})
+    if not conf.renderer.get("proposal_grid_bf16", False) \
+            or "grid" not in geo:
+        return params
+    grid = geo["grid"]
+    if sum(4 * f.numel() for f in grid.values()) > _PROPOSAL_BF16_MAX_BYTES:
+        return params
+    geo = dict(geo, grid={k: f.to(torch.bfloat16) for k, f in grid.items()})
+    return dict(params, **{"geometric-network": geo})
+
+
 def sample_importance(params, conf, camloc, raydir, t_near, t_far, t,
                       rand_u=None):
     """U rounds of hierarchical upsampling with gain 64 * 2^u
     (reference: sampler.py:167-242).  SDF values are evaluated once per
     position and carried through the merge-sorts, so round u evaluates only
     the M new positions of round u-1 (same values as re-evaluating all)."""
+    params = _proposal_params(params, conf)
     U = conf.renderer.n_upsamples
     base_gain = conf.renderer.sampling_sigmoid_gain
     sdf = _proposal_sdf(params, conf, camloc, raydir, t)
@@ -197,10 +220,6 @@ def sample_points(params, camloc, raydir, stratified_u, background_u, conf,
     if conf.renderer.get("proposal_method", "network") != "network":
         raise NotImplementedError(
             "renderer.proposal_method=coarse_grid is not ported yet "
-            "(ROADMAP A13: precision and opt-ins)")
-    if conf.renderer.get("proposal_grid_bf16", False):
-        raise NotImplementedError(
-            "renderer.proposal_grid_bf16 is not ported yet "
             "(ROADMAP A13: precision and opt-ins)")
     B, R, _ = raydir.shape
     t_near, t_far, mask = t_near_far(camloc, raydir, conf)

@@ -12,8 +12,11 @@ everything else ``lr_weight``.  The rule is nnabla Adam's, which
 
 with eps outside the *uncorrected* sqrt(v), moments always float32, and a
 non-finite gradient skipping params, moments and the step count alike
-(reference: train.py:141-146).  Parameters and moments are updated in place:
-at G=512 each table-sized temporary is 2.1 GB.
+(reference: train.py:141-146).  The update is computed in f32 and rounded
+once into the parameter's dtype, so a bf16 grid table (G=256: 134 MB) keeps
+f32 moments and takes one rounding per step (reference optim.py:93-98).
+Parameters and moments are updated in place: at G=512 each table-sized f32
+temporary is 2.1 GB.
 """
 
 from __future__ import annotations
@@ -69,8 +72,9 @@ def apply_updates(params, grads, state, lr_weight: float, lr_feat: float,
         clip = conf.train.clip_grad_norm
         gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs))
         scale = torch.clamp_max(clip / torch.clamp_min(gn, 1e-12), 1.0)
-        for g in gs:
-            g.mul_(scale.to(g.dtype))
+        # a bf16 gradient times the f32 scale is f32, as in the reference
+        gs = [g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
+              for g in gs]
 
     finite = bool(torch.stack([torch.isfinite(g).all() for g in gs]).all())
     if not finite:
@@ -86,7 +90,10 @@ def apply_updates(params, grads, state, lr_weight: float, lr_feat: float,
         m.mul_(_B1).add_(g32, alpha=1 - _B1)
         v.mul_(_B2).add_(g32 * g32, alpha=1 - _B2)
         lr = lr_feat if is_grid_feature_path(path) else lr_weight
-        step = m / v.sqrt().add_(_EPS)
-        p.sub_((step.mul_(lr * bias)).to(p.dtype))
+        step = (m / v.sqrt().add_(_EPS)).mul_(lr * bias)
+        if p.dtype == torch.float32:
+            p.sub_(step)
+        else:
+            p.copy_(p.float() - step)
     state["count"] = t
     return True

@@ -87,6 +87,14 @@ def check_supported(conf) -> None:
         raise NotImplementedError(
             "multi-device sharding is not ported yet (ROADMAP A14: "
             "parallel); set parallel.mesh_shape=[1,1]")
+    if conf.train.get("remat_heads", False):
+        raise NotImplementedError(
+            "train.remat_heads is not ported yet (ROADMAP A13: precision "
+            "and opt-ins)")
+    if conf.renderer.get("proposal_method", "network") != "network":
+        raise NotImplementedError(
+            "renderer.proposal_method=coarse_grid is not ported yet "
+            "(ROADMAP A13: precision and opt-ins)")
 
 
 def setup_monitor_dir(conf) -> str:
