@@ -3,22 +3,25 @@
 
     python3 chip_smoke.py
 
-Two training paths are driven: the unmodified default config (G=512 f32
-grid, f32 MLP; one scatter per differentiated grid query, two per step)
-and the reference's production precision (``bench.py:204``: G=256 bf16
-grid in the octa layout, bf16 MLP operands; one scatter and one fold per
-step).  Phases, each printing its lines as it goes:
+Two paths are driven: the unmodified default config (G=512 f32 grid, f32
+MLP; one scatter per differentiated grid query, two per step) and the
+reference's production precision (``bench.py:204``: G=256 bf16 grid in
+the octa layout, bf16 MLP operands; one scatter and one fold per step, and
+one octa table build per ``render_image`` or ``extract`` call).  Phases,
+each printing its lines as it goes:
 
 1. device  -- the card, as ``nvidia-smi`` names it, with its power limit.
 2. build   -- every hand-written kernel of ``ndjir_torch/csrc``, compiled
-              with ``nvcc`` for sm_90a (one process per source, in parallel).
+              with ``nvcc`` for sm_90a (one process per source, in
+              parallel), and the native mesh library with ``g++``.
 3. kernels -- each kernel's wrapper against its plain PyTorch version on the
-              card: at the shapes each training path gives it and at edge
-              cases; error, run-to-run repeatability, times and the bound.
+              card: at the shapes each path gives it and at edge cases;
+              error, run-to-run repeatability, times and the bound.
 4. parity  -- a small training loss and every parameter gradient on the card
               against the same computation on the CPU (the plain versions,
               which the CPU tests hold against the JAX reference), at f32
-              and at the two bf16 precisions.
+              and at the two bf16 precisions; a 16x16 rendered view and a
+              32^3 SDF volume, card against CPU, at f32 and bf16.
 5. train   -- per path, the ``Trainer`` on an in-memory 16-view sphere
               scene for three epochs of four steps; the lagged, warmed-up
               schedule puts the first two at lr=0, so the third is the
@@ -26,9 +29,18 @@ step).  Phases, each printing its lines as it goes:
               read just after.
 6. profile -- per path, one more epoch under ``torch.profiler``: device
               time by kernel and the device's busy share.
+7. render  -- per path, ``render_image`` of one view and ``Trainer.validate``
+              (the view's PSNR, a 128^3 extraction with its six attribute
+              meshes and the environment map); on the production path also
+              one full ``extract`` at 512^3.  Launch counts around each
+              call, times and peak memory.
+8. checkpoint -- on the production path, one more epoch that saves a
+              checkpoint, and a fresh ``Trainer`` on the same monitor
+              directory that resumes from it, bitwise.
 
-Monitor files and the full profiles go to ``--out`` (default
-``chip_smoke_out/``).  The last two lines are the ``{"kernels": [...]}``
+Monitor files, rendered images, environment maps and the full profiles go
+to ``--out`` (default ``chip_smoke_out/``); the meshes and the checkpoint
+are deleted once checked.  The last two lines are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  Every check raises on
 failure, so the script exits non-zero and prints neither; it does the same
 when there is no CUDA device or ``ndjir_torch`` is not beside it.
@@ -41,6 +53,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -61,6 +74,15 @@ OCTA = ["geometric_network.voxel.grid_size=256", "precision.mlp_dtype=bfloat16",
         "precision.grid_dtype=bfloat16"]
 OCTA_N, OCTA_D, OCTA_G = 2 * 4 * 512 * 128, 4, 256
 OCTA_ROWS = OCTA_G ** 3
+
+# kernel launches one training step makes, per path
+STEP_LAUNCHES = {
+    "default": {"scatter_add_rows": 2, "fold_octa_cotangent": 0,
+                "build_octa_table": 0},
+    "g256_bf16": {"scatter_add_rows": 1, "fold_octa_cotangent": 1,
+                  "build_octa_table": 0}}
+# octa table builds per render_image or extract call, per path
+BUILDS_PER_CALL = {"default": 0, "g256_bf16": 1}
 
 
 def log(phase: str, msg: str) -> None:
@@ -358,6 +380,94 @@ def fold_main_shape(torch, fold, step_cot, card_name):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the octa table build kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def check_build(torch, octa_build, label, base):
+    """The build wrapper vs the plain version on the same table: a pure
+    copy, so bitwise equal, and two runs bitwise equal."""
+    got = octa_build.build_octa_table(base)
+    again = octa_build.build_octa_table(base)
+    want = octa_build._build_octa_table_plain(base)
+    torch.cuda.synchronize()
+    equal = got.dtype == want.dtype and got.shape == want.shape \
+        and torch.equal(got, want)
+    repeatable = torch.equal(got, again)
+    log("kernels", f"build_octa_table {label}: grid {tuple(base.shape)} "
+        f"{base.dtype}: bitwise equal to the plain version: {equal}, "
+        f"bitwise_repeatable={repeatable}")
+    if not equal or not repeatable:
+        raise AssertionError(f"{label}: the octa build differs from its "
+                             "plain version, or two runs differ")
+    return got
+
+
+def build_edge_cases(torch, octa_build):
+    """Non-cubic grids, axes of length 1 and 2, D in {2, 3, 4}, bf16 and
+    f32: cells of 4, 6, 8, 12 and 16 bytes, every vector width the kernel
+    picks."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        for gshape in [(5, 3, 7, 4), (5, 3, 7, 2), (1, 3, 2, 4),
+                       (2, 1, 1, 2), (1, 1, 1, 4), (2, 2, 2, 2),
+                       (3, 1, 2, 4), (1, 2, 1, 2), (4, 5, 6, 3)]:
+            base = torch.randn(gshape, generator=gen, device=dev).to(dtype)
+            check_build(torch, octa_build, "edge", base)
+
+
+def build_main_shape(torch, octa_build, grid, base, octa_ids, card_name):
+    """At the inference shape, on the production path's trained table:
+    the kernel against the plain version and one ``index_select`` that
+    builds the same table from precomputed corner ids (the ids made
+    outside the timing); then the wide gather of the training step's octa
+    ids from the prebuilt table against ``GatherRowsOcta``'s 8-corner
+    forward at the same ids."""
+    dev = base.device
+    Gx, Gy, Gz, D = base.shape
+    table = check_build(torch, octa_build, "main-shape-trained-table", base)
+    ms = cuda_ms(torch, lambda: octa_build.build_octa_table(base))
+    plain_ms = cuda_ms(torch, lambda: octa_build._build_octa_table_plain(
+        base))
+    corners = grid.octa_corner_ids(torch.arange(Gx * Gy * Gz, device=dev),
+                                   base.shape).reshape(-1)
+    flat = base.reshape(-1, D)
+    if not torch.equal(flat.index_select(0, corners).reshape(-1, 8 * D),
+                       table):
+        raise AssertionError("index_select of the corner ids is not the "
+                             "octa table")
+    library_ms = cuda_ms(torch, lambda: flat.index_select(0, corners))
+    del corners
+    mem_rate, _ = card_peaks(card_name)
+    n_bytes = (base.numel() + table.numel()) * base.element_size()
+    bound_ms = 1e3 * n_bytes / mem_rate
+    log("kernels", f"build_octa_table main shape {tuple(base.shape)} "
+        f"{base.dtype}: {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+        f"of the 8 corner ids {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({n_bytes} B at {mem_rate:.3g} B/s; no arithmetic)")
+
+    with torch.no_grad():
+        wide = table.index_select(0, octa_ids)
+        if not torch.equal(wide, grid.GatherRowsOcta.apply(base, octa_ids)):
+            raise AssertionError("prebuilt-table rows differ from the "
+                                 "8-corner gather")
+    wide_ms = cuda_ms(torch, lambda: table.index_select(0, octa_ids))
+    corner_ms = cuda_ms(torch, lambda: grid.GatherRowsOcta.apply(
+        base, octa_ids))
+    log("kernels", f"wide gather of the step's {octa_ids.numel()} octa ids: "
+        f"{wide_ms:.4f} ms from the prebuilt table, {corner_ms:.4f} ms for "
+        "GatherRowsOcta's 8-corner forward (the same rows, bitwise)")
+    return dict(name="build_octa_table", route="cuda",
+                source="ndjir_torch/csrc/build_octa_table.cu",
+                replaces="scripts/probe_build_variants.py:153",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=library_ms,
+                bitwise_repeatable=True,
+                wide_gather_ms=wide_ms, corner_gather_ms=corner_ms)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the training loss and gradients, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -443,6 +553,73 @@ def parity_phase(torch, np, label):
         f"tol {loss_rtol}); {len(mons_c)} monitors, worst rel "
         f"{worst_mon:.3g} (tol {mon_rtol}); {len(grads_c)} gradient "
         f"leaves, worst |diff|/leaf max {worst:.3g} (tol {grad_tol})")
+
+
+# (extra overrides, absolute tolerance of the image, the normal and the
+# mask, SDF tolerance as a share of the volume's largest magnitude): the
+# tolerances of the CPU tests against the JAX reference
+# (tests/test_torch_render.py, tests/test_torch_extract.py)
+RENDER_PARITY = {
+    "f32": ([], (1e-4, 1e-4, 1e-4), 1e-5),
+    "b: bf16 grid and MLP": (["precision.grid_dtype=bfloat16",
+                              "precision.mlp_dtype=bfloat16"],
+                             (5e-3, 5e-2, 5e-3), 2.0 ** -7),
+}
+
+
+def render_parity_phase(torch, np, label, devices=("cpu", "cuda")):
+    """A 16x16 view (64x64 at valid.n_down_samples=2, one chunk) and a 32^3
+    SDF volume from the same G=48 parameters on the CPU and on the card
+    (``devices``).  Both renders draw the same Monte-Carlo uniforms (made
+    on the CPU)."""
+    from ndjir_torch.config import load_config
+    from ndjir_torch.data.dataset import IDRDataset
+    from ndjir_torch.data.synthetic import render_sphere_scene
+    from ndjir_torch.extract.mc import compute_sdf_volume
+    from ndjir_torch.models.fields import init_model
+    from ndjir_torch.render import image
+    from ndjir_torch.train.optim import tree_map
+
+    extra, tols, sdf_tol = RENDER_PARITY[label]
+    conf = load_config("default", overrides=[
+        "geometric_network.voxel.grid_size=48", "valid.n_down_samples=2",
+        *extra])
+    images, masks, cameras = render_sphere_scene(n_views=2, H=64, W=64)
+    ds = IDRDataset(conf, images, masks, cameras, train=False, shuffle=False)
+    params = init_model(conf, seed=0, device="cpu")
+    P = min(conf.valid.n_rays, 16 * 16)
+    cdfs = image.make_mc_cdfs(image.chunk_conf(conf), 1, P, device="cpu")
+
+    def same_cdfs(conf, B, R, dtype=torch.float32, device="cuda"):
+        return {k: [u.to(device) for u in v] if isinstance(v, list)
+                else v.to(device) for k, v in cdfs.items()}
+    real = image.make_mc_cdfs
+    image.make_mc_cdfs = same_cdfs
+    try:
+        outs = [image.render_image(
+            tree_map(lambda v: v.to(dev), params), ds.poses[:1],
+            ds.intrinsics[:1], (64, 64), conf, return_aux=True)
+            for dev in devices]
+    finally:
+        image.make_mc_cdfs = real
+    diffs = []
+    for name, c, g, tol in zip(("image", "normal", "mask"), *outs, tols):
+        if c.shape != g.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{label}: {name} {g.shape} on the card, "
+                                 f"{c.shape} on CPU, or not finite")
+        d = float(np.abs(g - c).max())
+        diffs.append(f"{name} {d:.3g} (tol {tol})")
+        if not d <= tol:
+            raise AssertionError(f"{label}: rendered {name} differs by {d}")
+    vol = [compute_sdf_volume(tree_map(lambda v: v.to(dev), params), conf,
+                              32) for dev in devices]
+    scale = float(np.abs(vol[0]).max())
+    d = float(np.abs(vol[1] - vol[0]).max())
+    if not d <= sdf_tol * scale:
+        raise AssertionError(f"{label}: SDF volume differs by {d}")
+    log("parity", f"render {label}, G=48, 16x16 view: max |card - CPU| "
+        f"{', '.join(diffs)}; 32^3 SDF volume {d:.3g} (tol "
+        f"{sdf_tol * scale:.3g})")
 
 
 # ---------------------------------------------------------------------------
@@ -655,6 +832,227 @@ def profile_phase(torch, trainer, name):
             f" {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: render, validate, extract
+# ---------------------------------------------------------------------------
+
+class Timed:
+    """Replaces named functions of a module by wrappers that add their
+    host time (ms; each ends in a device-to-host copy or host work, so the
+    device is done) to ``self.ms``; ``restore()`` puts them back."""
+
+    def __init__(self, module, names):
+        self.module, self.ms, self.real = module, {}, {}
+        for n in names:
+            self.real[n] = getattr(module, n)
+            setattr(module, n, self._wrap(n, self.real[n]))
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[name] = self.ms.get(name, 0.0) \
+                    + 1e3 * (time.perf_counter() - t0)
+        return timed
+
+    def restore(self):
+        for n, fn in self.real.items():
+            setattr(self.module, n, fn)
+
+
+def expect_launches(kernels, label, want):
+    got = dict(kernels.LAUNCHES)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return got
+
+
+def check_meshes(label, dirname, prefix):
+    """The six attribute OBJ files ``prefix``_<attr>_mesh00.obj, and the
+    environment map, exist and are not empty; the base-color mesh has
+    vertices and triangles and no "nan" or "inf" in its text.  Returns
+    (OBJ bytes, vertices, triangles); the OBJ files (gigabytes at 512^3)
+    are then deleted, the environment map kept."""
+    from ndjir_torch.extract.mc import _ATTR_SPECS
+
+    paths = [os.path.join(dirname, f"{prefix}_{attr}_mesh00.obj")
+             for attr, _, _ in _ATTR_SPECS]
+    png = os.path.join(dirname, "environment_map.png")
+    for path in paths + [png]:
+        if not os.path.exists(path) or os.path.getsize(path) == 0:
+            raise AssertionError(f"{label}: {path} missing or empty")
+    with open(paths[0], "rb") as f:
+        text = b"\n" + f.read()
+    n_verts, n_faces = text.count(b"\nv "), text.count(b"\nf ")
+    if n_verts == 0 or n_faces == 0 or b"nan" in text or b"inf" in text:
+        raise AssertionError(f"{label}: {n_verts} vertices, {n_faces} "
+                             "triangles, or a value not finite")
+    del text
+    n_bytes = sum(os.path.getsize(p) for p in paths)
+    for path in paths:
+        os.remove(path)
+    return n_bytes, n_verts, n_faces
+
+
+EXTRACT_STEPS = ["compute_sdf_volume", "mesh_from_volume",
+                 "compute_vertex_attribute", "save_obj",
+                 "extract_environment_map"]
+
+
+def extract_times(t) -> str:
+    return (f"SDF volume {t['compute_sdf_volume']:.1f} ms, marching cubes "
+            f"(host) {t['mesh_from_volume']:.1f} ms, six attributes "
+            f"{t['compute_vertex_attribute']:.1f} ms, OBJ text (host) "
+            f"{t['save_obj']:.1f} ms, environment map "
+            f"{t['extract_environment_map']:.1f} ms")
+
+
+def render_phase(torch, np, kernels, trainer, path, card_name, full_extract):
+    """``render_image`` of the validation view, then ``Trainer.validate``
+    (render + PSNR + a rough-grid extraction), then, with
+    ``full_extract``, one ``extract(train=False)`` at the config's
+    ``extraction.grid_size``; launch counts set to 0 before and read
+    after each call.  Returns the launches of the three calls, summed."""
+    from ndjir_torch.extract import mc
+    from ndjir_torch.render.image import render_image
+
+    conf, ds = trainer.conf, trainer.ds
+    builds = BUILDS_PER_CALL[path]
+    none = dict.fromkeys(kernels.SOURCES, 0)
+    per_call = dict(none, build_octa_table=builds)
+    idx = conf.valid.index % ds.size
+    dn = 2 ** conf.valid.n_down_samples
+    n_chunks = -(-(ds.W // dn) * (ds.H // dn) // conf.valid.n_rays)
+    total = dict(none)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    render_ms = []
+    for _ in range(2):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        img = render_image(trainer.params, ds.poses[idx:idx + 1],
+                           ds.intrinsics[idx:idx + 1], (ds.W, ds.H), conf)
+        render_ms.append(1e3 * (time.perf_counter() - t0))
+        add(expect_launches(kernels, f"{path} render_image", per_call))
+        if img.shape != (1, 3, ds.H // dn, ds.W // dn) \
+                or not np.isfinite(img).all():
+            raise AssertionError(f"{path}: rendered image {img.shape} not "
+                                 "finite or of the wrong shape")
+    log("render", f"{path}: render_image {img.shape[3]}x{img.shape[2]} in "
+        f"{n_chunks} chunks of {conf.valid.n_rays} rays, two calls: "
+        + ", ".join(f"{ms:.1f} ms per image ({ms / n_chunks:.2f} ms per "
+                    "chunk)" for ms in render_ms)
+        + " (host clock, synchronized)")
+
+    epoch = trainer.start_epoch
+    timer = Timed(mc, EXTRACT_STEPS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer.validate(epoch)
+    finally:
+        timer.restore()
+    validate_ms = 1e3 * (time.perf_counter() - t0)
+    add(expect_launches(kernels, f"{path} validate",
+                        {k: 2 * v for k, v in per_call.items()}))
+    G = conf.extraction.rough_grid_size
+    with open(trainer.monitor_psnr.fpath) as f:
+        last = f.read().splitlines()[-1].split()
+    if int(last[0]) != epoch or not math.isfinite(float(last[1])):
+        raise AssertionError(f"{path}: PSNR series ends with {last}")
+    n_bytes, n_verts, n_faces = check_meshes(
+        f"{path} validate", trainer.monitor_path,
+        f"model_{epoch:05d}_{G}grid_raw")
+    png = os.path.join(trainer.monitor_image.dir, f"{epoch:06d}.png")
+    if not os.path.getsize(png):
+        raise AssertionError(f"{path}: {png} empty")
+    log("render", f"{path}: validate (render + PSNR {float(last[1]):.4f} dB "
+        f"+ {G}^3 extraction): {validate_ms:.1f} ms; "
+        f"{extract_times(timer.ms)}; {n_verts} vertices, {n_faces} "
+        f"triangles, {n_bytes} B of OBJ")
+
+    if full_extract:
+        out = os.path.join(OUT_DIR, f"extract_{path}")
+        G = conf.extraction.grid_size
+        timer = Timed(mc, EXTRACT_STEPS)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            mc.extract(trainer.params, conf, out, "model", train=False)
+        finally:
+            timer.restore()
+        extract_ms = 1e3 * (time.perf_counter() - t0)
+        add(expect_launches(kernels, f"{path} extract", per_call))
+        n_bytes, n_verts, n_faces = check_meshes(f"{path} extract", out,
+                                                 f"model_{G}grid_raw")
+        log("render", f"{path}: extract at {G}^3 ({G ** 3} points in "
+            f"batches of {conf.extraction.batch_size}): {extract_ms:.1f} ms; "
+            f"{extract_times(timer.ms)}; {n_verts} vertices, {n_faces} "
+            f"triangles, {n_bytes} B of OBJ")
+
+    peak = torch.cuda.max_memory_allocated()
+    log("render", f"{path}: launches over these calls {total}; peak memory "
+        f"allocated {peak} B ({peak / 2 ** 30:.2f} GiB, optimizer state "
+        f"alive) on {card_name}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 8: checkpoint and resume
+# ---------------------------------------------------------------------------
+
+def checkpoint_phase(torch, trainer):
+    """One more epoch with a checkpoint after it, then a fresh ``Trainer``
+    (another seed) on the same monitor directory: it resumes at the next
+    epoch with every parameter and optimizer leaf bitwise the saved one."""
+    from ndjir_torch.train import trainer as ttrainer
+    from ndjir_torch.train.checkpoint import latest_checkpoint
+    from ndjir_torch.train.optim import tree_leaves_with_path
+
+    conf = trainer.conf
+    conf.train.checkpoint_interval_epochs = 1
+    epoch = trainer.start_epoch
+    timer = Timed(ttrainer, ["save_checkpoint", "load_checkpoint"])
+    try:
+        trainer.train(stop_epoch=epoch + 1)
+        path = latest_checkpoint(trainer.ckpt_dir)
+        if path is None or not path.endswith(f"ckpt_{epoch:07d}.msgpack"):
+            raise AssertionError(f"checkpoint after epoch {epoch}: {path}")
+        fresh = ttrainer.Trainer(conf, dataset=trainer.ds,
+                                 device=trainer.device, seed=1)
+    finally:
+        timer.restore()
+    if fresh.start_epoch != epoch + 1:
+        raise AssertionError(f"resumed at epoch {fresh.start_epoch}, want "
+                             f"{epoch + 1}")
+    n = 0
+    for name in ("params", "mu", "nu"):
+        a = trainer.params if name == "params" else trainer.opt_state[name]
+        b = fresh.params if name == "params" else fresh.opt_state[name]
+        for (p, x), (q, y) in zip(tree_leaves_with_path(a),
+                                  tree_leaves_with_path(b)):
+            if p != q or x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"{name} {'/'.join(p)} differs after "
+                                     "the resume")
+            n += 1
+    if fresh.opt_state["count"] != trainer.opt_state["count"]:
+        raise AssertionError("optimizer step count differs after the resume")
+    log("checkpoint", f"saved after epoch {epoch} ({os.path.getsize(path)} "
+        f"B, {timer.ms['save_checkpoint']:.1f} ms) and resumed by a fresh "
+        f"Trainer at epoch {fresh.start_epoch} "
+        f"({timer.ms['load_checkpoint']:.1f} ms to load): {n} leaves and the "
+        f"step count bitwise equal")
+    del fresh
+    shutil.rmtree(trainer.ckpt_dir)  # 689 MB; checked
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -687,7 +1085,8 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from ndjir_torch import kernels
-    from ndjir_torch.ops import fold, scatter
+    from ndjir_torch.extract import native
+    from ndjir_torch.ops import fold, grid, octa_build, scatter
 
     t0 = time.perf_counter()
     reports = kernels.build()
@@ -697,15 +1096,22 @@ def main() -> int:
         log("build", f"{name}: {' | '.join(lines)}")
     log("build", f"{len(kernels.SOURCES)} kernel(s) ready in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    native.build()
+    log("build", f"native mesh library ready in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     scatter_edge_cases(torch, scatter)
     fold_edge_cases(torch, fold)
+    build_edge_cases(torch, octa_build)
     log("kernels", f"edge cases done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for label in PARITY:
         parity_phase(torch, np, label)
+    for label in RENDER_PARITY:
+        render_parity_phase(torch, np, label)
     log("parity", f"done in {time.perf_counter() - t0:.1f} s")
 
     # path 1: the default config
@@ -718,14 +1124,18 @@ def main() -> int:
     log("kernels", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches_default = train_phase(
-        torch, kernels, trainer, card_name,
-        {"scatter_add_rows": 2, "fold_octa_cotangent": 0})
+    launches = {"default": train_phase(torch, kernels, trainer, card_name,
+                                       STEP_LAUNCHES["default"])}
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     profile_phase(torch, trainer, "profile.txt")
     log("profile", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rendered = {"default": render_phase(torch, np, kernels, trainer,
+                                        "default", card_name, False)}
+    log("render", f"done in {time.perf_counter() - t0:.1f} s")
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -736,7 +1146,6 @@ def main() -> int:
     octa_ids = octa_step_ids(torch, trainer)
     scatter_record["at_octa_shape"] = scatter_octa_shape(
         torch, scatter, octa_ids, card_name)
-    del octa_ids
     cot = step_cotangent(torch, trainer)
     fold_record = fold_main_shape(torch, fold, cot, card_name)
     del cot
@@ -744,21 +1153,45 @@ def main() -> int:
     log("kernels", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches_octa = train_phase(
-        torch, kernels, trainer, card_name,
-        {"scatter_add_rows": 1, "fold_octa_cotangent": 1})
+    launches["g256_bf16"] = train_phase(torch, kernels, trainer, card_name,
+                                        STEP_LAUNCHES["g256_bf16"])
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     profile_phase(torch, trainer, "profile_g256_bf16.txt")
     log("profile", f"done in {time.perf_counter() - t0:.1f} s")
 
-    records = [scatter_record, fold_record]
+    # the octa build at the inference shape, on the trained table
+    t0 = time.perf_counter()
+    build_record = build_main_shape(
+        torch, octa_build, grid,
+        trainer.params["geometric-network"]["grid"]["F"], octa_ids,
+        card_name)
+    del octa_ids
+    torch.cuda.empty_cache()
+    log("kernels", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rendered["g256_bf16"] = render_phase(torch, np, kernels, trainer,
+                                         "g256_bf16", card_name, True)
+    log("render", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    checkpoint_phase(torch, trainer)
+    log("checkpoint", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # main-path launches: the training steps' and the render, validation
+    # and extraction calls'
+    records = [scatter_record, fold_record, build_record]
     for r in records:
-        by_path = {"default": launches_default[r["name"]],
-                   "g256_bf16": launches_octa[r["name"]]}
-        r["launches"] = sum(by_path.values())
+        by_path = {path: {"train": launches[path][r["name"]],
+                          "render_validate_extract": rendered[path][r["name"]]}
+                   for path in launches}
+        r["launches"] = sum(sum(v.values()) for v in by_path.values())
         r["launches_by_path"] = by_path
+        if r["launches"] == 0:
+            raise AssertionError(f"{r['name']} was never launched on the "
+                                 "main path")
     log("total", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

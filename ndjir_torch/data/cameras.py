@@ -69,3 +69,9 @@ def generate_raydir_camloc(pose: np.ndarray, intrinsic: np.ndarray,
         np.sum(xyz_world ** 2, axis=-1, keepdims=True))
     return raydir.astype(np.float32), camloc.reshape(B, 3).astype(np.float32)
 
+
+def generate_all_pixels(W: int, H: int) -> np.ndarray:
+    """Row-major (x, y) pixel grid, shape (H*W, 2)
+    (reference helper.py:76-81)."""
+    xx, yy = np.meshgrid(np.arange(W), np.arange(H))
+    return np.asarray([xx.flatten(), yy.flatten()]).T

@@ -34,6 +34,7 @@ from ndjir_torch.ops.grid import (
     voxel_interp_octa,
     voxel_tv_octa,
 )
+from ndjir_torch.ops.octa_build import build_octa_table
 
 Params = Dict[str, Any]
 
@@ -363,7 +364,28 @@ def _vbox(conf):
 def geometric_gather_corners(params: Params, x_list, conf):
     """Octa rows for several point sets from ONE gather; pair with
     :func:`geometric_apply_corners` (reference fields.py:343)."""
-    return voxel_gather_multi(x_list, params["grid"]["F"], *_vbox(conf))
+    return voxel_gather_multi(x_list, params["grid"]["F"], *_vbox(conf),
+                              params["grid"].get("octa_table"))
+
+
+def with_octa_table(params: Params, conf) -> Params:
+    """A shallow copy of the full model ``params`` whose geometric grid
+    carries its prebuilt octa table as ``grid["octa_table"]`` (one B3
+    launch on the card), for inference over a frozen table: every grid
+    query then reads one row of it per point, as the JAX package's forward
+    does (grid.py:548).  ``params`` itself when the grid does not take the
+    octa layout (:func:`geometric_supports_shared_gather`; an f32 grid
+    never does) or already carries its table.  The copy holds the only
+    reference to the table, so it is freed with the copy."""
+    geo = params.get("geometric-network", {})
+    if not geometric_supports_shared_gather(geo, conf) \
+            or "octa_table" in geo["grid"]:
+        return params
+    grid = geo["grid"]
+    with torch.no_grad():
+        table = build_octa_table(grid["F"])
+    geo = dict(geo, grid=dict(grid, octa_table=table))
+    return dict(params, **{"geometric-network": geo})
 
 
 def geometric_apply_corners(params: Params, x: torch.Tensor,

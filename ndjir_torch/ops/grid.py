@@ -9,9 +9,13 @@ Counterpart of ``ndjir_tpu/ops/grid.py``, dense-voxel branches over a
 - octa: a bf16 table whose 8-corner-packed rows would take at most
   1.2 GB (:func:`use_octa_layout`, the JAX package's rule) reads one 8D-wide
   row per point through :class:`GatherRowsOcta`, whose backward is B1 in
-  transposed form followed by the fold kernel (B2).  The port gathers the
+  transposed form followed by the fold kernel (B2).  Training gathers the
   8 clamped corners straight from the base table instead of building the
-  duplicated table; the rows are the same bits.
+  duplicated table; the rows are the same bits.  Inference, whose table is
+  frozen, builds the duplicated table once per call (B3,
+  :func:`~ndjir_torch.ops.octa_build.build_octa_table`) and passes it in
+  as ``octa_table``: each point then reads one contiguous row of it
+  (:func:`gather_octa_table`), as the JAX package's forward does.
 
 The reference's z-dup and packed layouts exist for XLA on a TPU and give
 the 8-corner numbers; the port does not have them.
@@ -178,18 +182,43 @@ class GatherRowsOcta(torch.autograd.Function):
         return fold_octa_cotangent(cot_t, ctx.gshape, g.dtype), None
 
 
+def gather_octa_table(octa_table: torch.Tensor, ids: torch.Tensor,
+                      base: torch.Tensor) -> torch.Tensor:
+    """(N, 8D) rows of a prebuilt octa table (the build of ``base``) for
+    octa row ids (N,): the JAX package's ``table[ids]`` (grid.py:548), a
+    plain gather.  The rows are constants; a query still differentiates in
+    the point through the interpolation weights.  Refuses a ``base`` that
+    requires grad: the table gradient only flows through
+    :class:`GatherRowsOcta`."""
+    if base.requires_grad:
+        raise RuntimeError("a prebuilt octa table carries no gradient to "
+                           "its base table; a differentiated table must "
+                           "take GatherRowsOcta")
+    Gx, Gy, Gz, D = base.shape
+    if tuple(octa_table.shape) != (Gx * Gy * Gz, 8 * D) \
+            or octa_table.dtype != base.dtype:
+        raise ValueError(f"octa table {tuple(octa_table.shape)} "
+                         f"{octa_table.dtype} is not the build of a "
+                         f"{tuple(base.shape)} {base.dtype} table")
+    return octa_table.index_select(0, ids)
+
+
 def voxel_gather_multi(x_list, feature: torch.Tensor,
-                       vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX):
+                       vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
+                       octa_table: torch.Tensor | None = None):
     """Octa rows (*x.shape[:-1], 8D) for SEVERAL point sets from ONE
     :class:`GatherRowsOcta` call, so the backward issues one B1 and one B2
-    launch for all of them (reference grid.py:637-660).  The table must
-    take the octa layout (:func:`use_octa_layout`)."""
+    launch for all of them (reference grid.py:637-660); from the prebuilt
+    ``octa_table`` of ``feature`` when one is given
+    (:func:`gather_octa_table`).  The table must take the octa layout
+    (:func:`use_octa_layout`)."""
     if not use_octa_layout(feature.shape, feature.dtype):
         raise ValueError(f"a {tuple(feature.shape)} {feature.dtype} table "
                          "does not take the octa layout")
     ids = [voxel_octa_ids(x, feature.shape, vmin, vmax) for x in x_list]
-    f = GatherRowsOcta.apply(feature, torch.cat([i.reshape(-1)
-                                                 for i in ids]))
+    flat = torch.cat([i.reshape(-1) for i in ids])
+    f = GatherRowsOcta.apply(feature, flat) if octa_table is None \
+        else gather_octa_table(octa_table, flat, feature)
     out, off = [], 0
     for i in ids:
         out.append(f[off:off + i.numel()].reshape(*i.shape, f.shape[-1]))
@@ -233,11 +262,13 @@ def voxel_tv_octa(f: torch.Tensor, dtype: torch.dtype,
 
 def query_voxel(x: torch.Tensor, feature: torch.Tensor,
                 vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
-                weight: str = "linear") -> torch.Tensor:
+                weight: str = "linear",
+                octa_table: torch.Tensor | None = None) -> torch.Tensor:
     """Trilinear (or cosine-weighted) dense-grid query: (..., 3) -> (..., D)
-    (reference grid.py:721: octa branch :735-738, 8-corner :740-761)."""
+    (reference grid.py:721: octa branch :735-738, 8-corner :740-761).  An
+    octa table's rows come from ``octa_table`` when it is given."""
     if use_octa_layout(feature.shape, feature.dtype):
-        (f,) = voxel_gather_multi([x], feature, vmin, vmax)
+        (f,) = voxel_gather_multi([x], feature, vmin, vmax, octa_table)
         return voxel_interp_octa(x, f, feature.shape, vmin, vmax, weight)
     f, w = _gather_corners(x, feature, vmin, vmax, weight)
     return torch.sum(w[..., None] * f, dim=0)
@@ -245,7 +276,8 @@ def query_voxel(x: torch.Tensor, feature: torch.Tensor,
 
 def query_voxel_and_tv(x: torch.Tensor, feature: torch.Tensor,
                        vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
-                       weight: str = "linear", sym_backward: bool = True):
+                       weight: str = "linear", sym_backward: bool = True,
+                       octa_table: torch.Tensor | None = None):
     """Trilinear query + cell TV map sharing ONE corner gather
     (reference grid.py:764, 8-corner branch :791-824).
 
@@ -253,10 +285,10 @@ def query_voxel_and_tv(x: torch.Tensor, feature: torch.Tensor,
     its cell's corner 000 to corners 100, 010 and 001, in the point's dtype.
     ``sym_backward=False`` stops the gradient into the base corner.  Returns
     (interp (..., D), tv (..., D)).  Octa tables take the octa branch
-    (:781-784).
+    (:781-784), reading ``octa_table`` when it is given.
     """
     if use_octa_layout(feature.shape, feature.dtype):
-        (f,) = voxel_gather_multi([x], feature, vmin, vmax)
+        (f,) = voxel_gather_multi([x], feature, vmin, vmax, octa_table)
         interp = voxel_interp_octa(x, f, feature.shape, vmin, vmax, weight)
         return interp, voxel_tv_octa(f, x.dtype, sym_backward)
     f, w = _gather_corners(x, feature, vmin, vmax, weight)
@@ -316,10 +348,11 @@ class GridEncoding:
     def apply_with_tv(self, params, x: torch.Tensor, sym_backward: bool = True):
         """(features, tv_map) from one shared corner gather."""
         return query_voxel_and_tv(self._x(x), params["F"], self.vmin,
-                                  self.vmax, self.kind, sym_backward)
+                                  self.vmax, self.kind, sym_backward,
+                                  params.get("octa_table"))
 
     def apply(self, params, x: torch.Tensor) -> torch.Tensor:
         if self.type == "none":
             raise ValueError("apply() on type='none'")
         return query_voxel(self._x(x), params["F"], self.vmin, self.vmax,
-                           self.kind)
+                           self.kind, params.get("octa_table"))

@@ -3,9 +3,13 @@ reference python/train.py:33-165).
 
 :func:`train_step` is one gradient step: sample -> render -> loss ->
 autograd (with the eikonal double backward) -> dual Adam.  :class:`Trainer`
-feeds it ray batches and the epoch schedules.  Not ported yet, and refused
-with ``NotImplementedError`` where a config asks for them: checkpoint save
-and resume (ROADMAP A7), validation (A8), multi-device sharding (A14).
+feeds it ray batches and the epoch schedules, validates (a rendered view's
+PSNR and a mesh extraction) on the ``valid`` cadence, saves checkpoints on
+``train.checkpoint_interval_epochs`` and at the end of the schedule, and
+resumes from the newest checkpoint in its monitor directory.  Not ported
+yet, and refused with ``NotImplementedError`` where a config asks for
+them: the DTU Chamfer evaluation of the final validation (ROADMAP A11) and
+multi-device sharding (A14).
 """
 
 from __future__ import annotations
@@ -20,10 +24,18 @@ import torch
 from ndjir_torch.config import Config, save_config
 from ndjir_torch.data.cameras import generate_raydir_camloc
 from ndjir_torch.data.dataset import IDRDataset
+from ndjir_torch.eval.image import psnr
+from ndjir_torch.extract.mc import extract_mesh_for_validation
 from ndjir_torch.models.fields import init_model
+from ndjir_torch.render.image import render_image
 from ndjir_torch.render.loss import total_loss
 from ndjir_torch.render.renderer import make_mc_cdfs
 from ndjir_torch.train import schedules
+from ndjir_torch.train.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from ndjir_torch.train.optim import (
     apply_updates,
     init_optimizer,
@@ -31,6 +43,7 @@ from ndjir_torch.train.optim import (
 )
 from ndjir_torch.utils.monitor import (
     Monitor,
+    MonitorImage,
     MonitorSeries,
     MonitorTimeElapsed,
     logger,
@@ -78,11 +91,19 @@ def train_step(params, opt_state, camloc, raydir, color_gt, obj_mask,
     return monitors
 
 
+def _is_dtu_data(data_path: str) -> bool:
+    """reference: helper.py:137-138 (parent dir starts with 'DTU')."""
+    parts = str(data_path).rstrip("/").split("/")
+    return len(parts) >= 2 and parts[-2].startswith("DTU")
+
+
 def check_supported(conf) -> None:
     """Refuse, before any work, what the port does not run yet."""
-    if not conf.valid.skip:
+    if not conf.valid.skip and _is_dtu_data(conf.data_path):
         raise NotImplementedError(
-            "validation is not ported yet (ROADMAP A8); set valid.skip=true")
+            "the final validation's DTU Chamfer evaluation is not ported "
+            "yet (ROADMAP A11: entry points and DTU evaluation); set "
+            "valid.skip=true")
     if list(conf.parallel.mesh_shape) != [1, 1]:
         raise NotImplementedError(
             "multi-device sharding is not ported yet (ROADMAP A14: "
@@ -134,11 +155,7 @@ class Trainer:
         self.conf = conf
         self.device = torch.device(device)
         self.monitor_path = setup_monitor_dir(conf)
-        ckpt_dir = os.path.join(self.monitor_path, "checkpoints")
-        if os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-            raise NotImplementedError(
-                f"resuming from {ckpt_dir} is not ported yet (ROADMAP A7: "
-                "checkpoint/resume)")
+        self.ckpt_dir = os.path.join(self.monitor_path, "checkpoints")
         self.ds = dataset
         self.params = init_model(conf, seed=seed, device=self.device)
         self.opt_state = init_optimizer(self.params)
@@ -148,10 +165,53 @@ class Trainer:
                                   conf.train.n_rays, device=self.device)
         self.start_epoch = 0
         self.history = []  # per step: {monitor name: value}
+        self._maybe_resume()
         m = Monitor(self.monitor_path)
         self.series = {k: MonitorSeries(n, m, verbose=False)
                        for k, n in self._SERIES.items()}
         self.monitor_time = MonitorTimeElapsed("Training time", m)
+        Wl = self.ds.W // 2 ** conf.valid.n_down_samples
+        Hl = self.ds.H // 2 ** conf.valid.n_down_samples
+        self.monitor_psnr = MonitorSeries(f"PSNR {Wl}x{Hl}", m)
+        self.monitor_image = MonitorImage(f"Rendered image {Wl}x{Hl}", m)
+
+    def _maybe_resume(self):
+        """Continue from the newest checkpoint in the monitor directory:
+        parameters, optimizer state and the epoch after the saved one."""
+        latest = latest_checkpoint(self.ckpt_dir)
+        if latest:
+            self.params, self.opt_state, extra = load_checkpoint(
+                latest, self.params, self.opt_state)
+            self.start_epoch = int(extra.get("step", 0)) + 1
+            logger.info(f"Resumed from {latest} at epoch {self.start_epoch}")
+
+    def validate(self, epoch: int, final: bool = False):
+        """Render the ``valid.index`` view at ``valid.n_down_samples``, log
+        its PSNR against the downsampled ground truth and the image, then
+        extract the meshes (rough grid; full grid and mask trimming when
+        ``final``).  An extraction failure is logged and training goes on,
+        as in the JAX package."""
+        conf = self.conf
+        idx = conf.valid.index % self.ds.size
+        pose = self.ds.poses[idx:idx + 1]
+        intrinsic = self.ds.intrinsics[idx:idx + 1]
+        rimage = render_image(self.params, pose, intrinsic,
+                              (self.ds.W, self.ds.H), conf,
+                              lv_gain=schedules.light_visibility_gain(
+                                  epoch, conf))
+        dn = 2 ** conf.valid.n_down_samples
+        gt = self.ds.images[idx][::dn, ::dn, :]
+        gt = gt[np.newaxis].transpose(0, 3, 1, 2)
+        h = min(gt.shape[2], rimage.shape[2])
+        w = min(gt.shape[3], rimage.shape[3])
+        self.monitor_image.add(epoch, rimage)
+        self.monitor_psnr.add(epoch, psnr(rimage[:, :, :h, :w],
+                                          gt[:, :, :h, :w]))
+        try:
+            extract_mesh_for_validation(self.params, conf, self.monitor_path,
+                                        epoch, final=final, dataset=self.ds)
+        except Exception as e:  # extraction must never kill training
+            logger.exception(f"Mesh extraction failed (continuing): {e!r}")
 
     def next_batch(self):
         """One training batch on the device: (camloc, raydir, color, mask)."""
@@ -163,21 +223,23 @@ class Trainer:
 
     def train(self, stop_epoch: Optional[int] = None):
         """Train epochs [start_epoch, stop_epoch) of the conf.train.epoch
-        schedule (all of it by default).  ``train.steps_per_call`` fuses
-        steps into one program in the reference; here every step is its own
-        call, the same math."""
+        schedule (all of it by default), validating at the top of every
+        ``valid.epoch_interval``-th epoch and saving a checkpoint after
+        every ``train.checkpoint_interval_epochs``-th.  Reaching the end of
+        the schedule saves the last checkpoint and runs the final
+        validation.  ``train.steps_per_call`` fuses steps into one program
+        in the reference; here every step is its own call, the same math."""
         conf = self.conf
         E = conf.train.epoch
         stop = E if stop_epoch is None else min(stop_epoch, E)
         every = conf.train.checkpoint_interval_epochs
-        if stop == E or (every > 0 and any(
-                (e + 1) % every == 0 for e in range(self.start_epoch, stop))):
-            raise NotImplementedError(
-                f"epochs {self.start_epoch}..{stop - 1} would save a "
-                "checkpoint, which is not ported yet (ROADMAP A7: "
-                "checkpoint/resume); stop before it")
         iters = self.ds.iters_per_epoch
         for epoch in range(self.start_epoch, stop):
+            if (epoch != 0 and conf.valid.epoch_interval > 0
+                    and epoch % conf.valid.epoch_interval == 0
+                    and not conf.valid.skip):
+                self.validate(epoch)
+
             # reference parity: the schedules update at the END of epoch i
             # (train.py:163), so epoch e trains with them at e-1, and epoch 0
             # with lr=0 / cos_anneal=0 / lv_gain=1 (solver.py:29)
@@ -210,5 +272,14 @@ class Trainer:
                                        self.history[-len(epoch_mons):]]))
             logger.info(f"epoch {epoch}: loss={mean_loss:.6g}")
             self.monitor_time.add(epoch)
+            if every > 0 and (epoch + 1) % every == 0:
+                save_checkpoint(self.ckpt_dir, epoch, self.params,
+                                self.opt_state,
+                                keep=conf.train.keep_checkpoints)
         self.start_epoch = stop
+        if stop == E:
+            save_checkpoint(self.ckpt_dir, E - 1, self.params,
+                            self.opt_state, keep=conf.train.keep_checkpoints)
+            if not conf.valid.skip:
+                self.validate(E - 1, final=True)
         return self.params

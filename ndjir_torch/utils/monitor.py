@@ -2,9 +2,8 @@
 
 The port's copy of ``ndjir_tpu/utils/monitor.py``: ``<name>.series.txt``
 lines ``<index> <value>`` and ``<name>.timer.txt`` lines, in the same file
-format, so existing plotting scripts keep working.  The reference's PNG
-``MonitorImage`` is left out: only validation writes images, and validation
-is not ported yet (ROADMAP A8).
+format, so existing plotting scripts keep working, and ``MonitorImage``'s
+PNG dumps, written by the port's own PNG writer (:mod:`.png`).
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ import os
 import time
 
 import numpy as np
+
+from ndjir_torch.utils.png import write_png
 
 logger = logging.getLogger("ndjir_torch")
 if not logger.handlers:
@@ -64,3 +65,21 @@ class MonitorTimeElapsed:
         with open(self.fpath, "a") as f:
             f.write(f"{index} {now - self._last:.4f} {now - self._start:.4f}\n")
         self._last = now
+
+
+class MonitorImage:
+    def __init__(self, name: str, monitor: Monitor, interval: int = 1):
+        self.name = name
+        self.interval = interval
+        self.dir = os.path.join(monitor.path, name.replace(" ", "-"))
+        os.makedirs(self.dir, exist_ok=True)
+
+    def add(self, index: int, image: np.ndarray):
+        """image: (1, C, H, W) or (H, W, C) float [0, 1]."""
+        if index % self.interval != 0:
+            return
+        img = np.asarray(image)
+        if img.ndim == 4:
+            img = img[0].transpose(1, 2, 0)
+        img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        write_png(os.path.join(self.dir, f"{index:06d}.png"), img)

@@ -14,7 +14,7 @@ import torch
 
 from ndjir_torch import kernels
 from ndjir_torch.models.fields import affine_apply
-from ndjir_torch.ops import fold, grid
+from ndjir_torch.ops import fold, grid, octa_build
 from ndjir_torch.ops.scatter import (
     _scatter_add_rows_plain,
     gather_rows,
@@ -133,7 +133,8 @@ def test_octa_gather_backward_on_the_card_matches_cpu(cuda):
         assert g.dtype == torch.bfloat16
         grads.append(g.cpu())
     assert kernels.LAUNCHES == {"scatter_add_rows": 1,
-                                "fold_octa_cotangent": 1}
+                                "fold_octa_cotangent": 1,
+                                "build_octa_table": 0}
     # f32 sums in another order, each rounded once to bf16: one ulp, and
     # f32 rounding (1e-6 of the largest) where a sum cancels to near zero
     want = grads[0].double()
@@ -159,3 +160,50 @@ def test_bf16_affine_on_the_card_sums_in_f32(cuda):
                          out_dtype=torch.bfloat16).cpu()
     assert bool(((got16.double() - want.double()).abs()
                  <= want.double().abs() * 2.0 ** -7 + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gshape", [(5, 3, 7, 4), (5, 3, 7, 2), (1, 3, 2, 4),
+                                    (2, 1, 1, 2), (1, 1, 1, 4), (2, 2, 2, 2),
+                                    (4, 5, 6, 3), (16, 16, 16, 4)], ids=str)
+def test_octa_build_kernel_is_the_plain_version_bitwise(cuda, gshape, dtype):
+    """Every vector width the kernel picks (cells of 4, 6, 8, 12 and 16
+    bytes), non-cubic grids and axes of length 1 and 2."""
+    base = torch.from_numpy(np.random.RandomState(17).randn(*gshape)
+                            .astype(np.float32)).to(dtype)
+    want = octa_build._build_octa_table_plain(base)
+    kernels.reset_launches()
+    got = octa_build.build_octa_table(base.to(cuda))
+    again = octa_build.build_octa_table(base.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["build_octa_table"] == 2
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_render_call_builds_the_table_once_on_the_octa_layout(cuda):
+    from ndjir_torch.config import load_config
+    from ndjir_torch.data.dataset import IDRDataset
+    from ndjir_torch.data.synthetic import render_sphere_scene
+    from ndjir_torch.models.fields import init_model
+    from ndjir_torch.render.image import render_image
+
+    tiny = ["geometric_network.voxel.grid_size=16",
+            "geometric_network.feature_size=64", "renderer.n_samples0=8",
+            "renderer.n_samples1=4", "renderer.n_bg_samples=4",
+            "renderer.n_thetas=2", "valid.n_down_samples=1",
+            "valid.n_rays=24"]
+    images, masks, cameras = render_sphere_scene(n_views=2, H=16, W=16)
+    for extra, builds in (([], 0), (["precision.grid_dtype=bfloat16"], 1)):
+        conf = load_config("default", overrides=tiny + extra)
+        ds = IDRDataset(conf, images, masks, cameras, train=False,
+                        shuffle=False)
+        params = init_model(conf, seed=0, device=cuda)
+        kernels.reset_launches()
+        img = render_image(params, ds.poses[:1], ds.intrinsics[:1],
+                           (16, 16), conf)
+        assert kernels.LAUNCHES["build_octa_table"] == builds
+        assert img.shape == (1, 3, 8, 8) and np.isfinite(img).all()
