@@ -125,36 +125,51 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
 def check_scatter(torch, scatter, label, ids, vals, num_rows,
                   transposed=False):
     """Kernel wrapper vs the plain version on the same inputs, accumulated
-    in float64 (so exactly, to f32 precision); returns the max abs error.
-    Tolerance: 1e-5 of the largest row sum for f32 outputs (the kernel's
-    f32 sums of up to ~10^5 terms, taken in a fixed order, stay well inside
-    it), one bf16 ulp (at most 2^-7 of the value) for bf16 outputs.  Both the kernel
-    and the exact sums are deterministic, so the check is too."""
+    in float64 (so exactly, to f32 precision), with ids outside
+    [0, num_rows) left out, as the kernel drops them; the kernel's slab
+    pre-pass vs its plain version (``torch.searchsorted``), exactly.
+    Returns the max abs error.  Tolerance: 1e-5 of the largest row sum for
+    f32 outputs (the kernel's f32 sums of up to ~10^5 terms, taken in a
+    fixed order, stay well inside it), one bf16 ulp (at most 2^-7 of the
+    value) for bf16 outputs.  Both the kernel and the exact sums are
+    deterministic, so the check is too."""
     fn = scatter.scatter_add_rows_t if transposed \
         else scatter.scatter_add_rows
     got = fn(ids, vals, num_rows)
     again = fn(ids, vals, num_rows)
-    want = scatter._scatter_add_rows_plain(ids, vals, num_rows,
+    keep = (ids >= 0) & (ids < num_rows)
+    want = scatter._scatter_add_rows_plain(ids[keep], vals[keep], num_rows,
                                            acc_dtype=torch.float64)
     if transposed:
         want = want.t()
+    ids32 = scatter.sort_updates(ids)[0]
+    rows = scatter.slab_rows(vals.shape[1])
+    starts = scatter.slab_starts(ids32, num_rows, rows)
+    starts_ok = torch.equal(starts, scatter._slab_starts_plain(
+        ids32, num_rows, rows))
     torch.cuda.synchronize()
     want_dtype = torch.float32 if transposed else vals.dtype
     if got.shape != want.shape or got.dtype != want_dtype:
         raise AssertionError(f"{label}: got {tuple(got.shape)} {got.dtype}, "
                              f"want {tuple(want.shape)} {want_dtype}")
-    err = (got.double() - want).abs().max().item()
-    scale = max(1.0, want.abs().max().item())
+    err = (got.double() - want).abs().max().item() if got.numel() else 0.0
+    scale = max(1.0, want.abs().max().item() if want.numel() else 0.0)
     rel = 2.0 ** -7 if want_dtype == torch.bfloat16 else 1e-5
     repeatable = torch.equal(got, again)
+    busy = int((starts[1:] != starts[:-1]).sum().item())
     log("kernels", f"scatter_add_rows {label}: N={ids.numel()} "
         f"D={vals.shape[1]} rows={num_rows} max_abs_err={err:.3g} "
-        f"(tol {rel * scale:.3g}) bitwise_repeatable={repeatable}")
+        f"(tol {rel * scale:.3g}) bitwise_repeatable={repeatable}; "
+        f"{busy} of {starts.numel() - 1} slabs of {rows} rows take updates, "
+        f"pre-pass equal to searchsorted: {starts_ok}")
     if not err <= rel * scale:
         raise AssertionError(f"{label}: kernel disagrees with the plain "
                              f"version by {err}")
     if not repeatable:
         raise AssertionError(f"{label}: two runs differ")
+    if not starts_ok:
+        raise AssertionError(f"{label}: the slab pre-pass differs from "
+                             "searchsorted")
     return err
 
 
@@ -172,9 +187,12 @@ def _rand(torch, seed):
 
 
 def scatter_edge_cases(torch, scatter):
-    """Random ids; 700 updates to one row; the rows on either side of the
-    kernel's slab edges at D=4 (2048-row slabs) and of the TPU kernel's
-    (4096); D in {4, 8, 32}; transposed output; bf16 values."""
+    """Random ids; 700 updates to one row; no updates at all; updates in one
+    slab only; ids outside [0, num_rows) mixed in; num_rows not a multiple
+    of the slab; D in {1, 3, 4, 8, 32, 33}; the rows on either side of the
+    kernel's slab edges (256 rows at D=4, 64 at D=32) and of the TPU
+    kernel's (4096); transposed output; bf16 values; a 20,000-update row at
+    D=32, transposed, bf16."""
     dev = torch.device("cuda")
     randn, randint = _rand(torch, 0)
     check_scatter(torch, scatter, "random", randint(100_000, 65_536),
@@ -182,17 +200,70 @@ def scatter_edge_cases(torch, scatter):
     hot = torch.cat([torch.full((700,), 1234, device=dev),
                      randint(9000, 500)])
     check_scatter(torch, scatter, "700-to-one-row", hot, randn(1200, 4), 9000)
-    edges = torch.tensor([0, 2047, 2048, 4095, 4096, 8191],
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    for d, transposed in ((4, False), (32, True), (3, False)):
+        check_scatter(torch, scatter, f"no-updates-d{d}", none,
+                      randn(0, d), 10_007, transposed)
+    for d, transposed in ((4, False), (32, True)):
+        rows = scatter.slab_rows(d)
+        one = 5 * rows + randint(rows, 3000)
+        check_scatter(torch, scatter, f"one-busy-slab-d{d}", one,
+                      randn(3000, d), 40 * rows + 3, transposed)
+    outside = randint(70_000, 20_000) - 5000     # [-5000, 65000) into 60,001
+    outside[::7] = 2 ** 31 - 1
+    for d, transposed in ((4, False), (32, True), (1, False)):
+        check_scatter(torch, scatter, f"ids-outside-d{d}", outside,
+                      randn(20_000, d), 60_001, transposed)
+    for d in (1, 3, 33):
+        for transposed in (False, True):
+            check_scatter(torch, scatter, f"d{d}-transposed{int(transposed)}",
+                          randint(30_011, 8000), randn(8000, d), 30_011,
+                          transposed)
+    edges = torch.tensor([0, 31, 32, 63, 64, 255, 256, 511, 512, 2047, 2048,
+                          4095, 4096, 6143, 6144, 8191],
                          device=dev).repeat_interleave(40)
     for d in (4, 8, 32):
-        check_scatter(torch, scatter, f"slab-edges-d{d}", edges,
-                      randn(edges.numel(), d), 8192)
+        for transposed in (False, True):
+            check_scatter(torch, scatter,
+                          f"slab-edges-d{d}-transposed{int(transposed)}",
+                          edges, randn(edges.numel(), d), 8192, transposed)
     for d in (4, 32):
         check_scatter(torch, scatter, f"transposed-d{d}",
                       randint(50_001, 20_000), randn(20_000, d), 50_001,
                       transposed=True)
     check_scatter(torch, scatter, "bf16", randint(30_000, 10_000),
                   randn(10_000, 4, torch.bfloat16), 30_000)
+    hot = torch.cat([torch.full((20_000,), 4095, device=dev),
+                     randint(65_536, 5000)])
+    check_scatter(torch, scatter, "20000-to-one-row-d32-bf16-transposed",
+                  hot[torch.randperm(hot.numel(), device=dev)],
+                  randn(hot.numel(), 32, torch.bfloat16), 65_536,
+                  transposed=True)
+
+
+def profile_once(torch, label, fn):
+    """One call of ``fn`` (after a warm-up call) under ``torch.profiler``:
+    the device time of every kernel it launched, by kernel name, logged
+    and returned as [{"kernel", "launches", "us"}] in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [dict(kernel=e.key, launches=e.count,
+                 us=e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(r["us"] for r in rows)
+    log("kernels", f"{label} under the profiler: {len(rows)} kernel(s), "
+        f"{total:.1f} us of device time")
+    for r in rows:
+        log("kernels", f"  {r['us']:9.1f} us x{r['launches']} "
+            f"{r['kernel'][:110]}")
+    return rows
 
 
 def scatter_timings(torch, scatter, label, ids, vals, num_rows, transposed,
@@ -207,15 +278,17 @@ def scatter_timings(torch, scatter, label, ids, vals, num_rows, transposed,
                         num_rows, transposed)
     fn = scatter.scatter_add_rows_t if transposed \
         else scatter.scatter_add_rows
-    ids32, vals_s = scatter.sort_updates(ids, vals)
+    wrapper_profile = profile_once(torch, f"scatter_add_rows {label}",
+                                   lambda: fn(ids, vals, num_rows))
+    ids32, perm = scatter.sort_updates(ids)
     ids64, vals32 = ids.long(), vals.float()
 
     def plain():
         out = scatter._scatter_add_rows_plain(ids, vals, num_rows)
         return out.t().contiguous() if transposed else out
     ms = cuda_ms(torch, lambda: fn(ids, vals, num_rows))
-    sort_ms = cuda_ms(torch, lambda: scatter.sort_updates(ids, vals))
-    kernel_ms = cuda_ms(torch, lambda: scatter._launch(ids32, vals_s,
+    sort_ms = cuda_ms(torch, lambda: scatter.sort_updates(ids))
+    kernel_ms = cuda_ms(torch, lambda: scatter._launch(ids32, perm, vals,
                                                        num_rows, transposed))
     plain_ms = cuda_ms(torch, plain)
     library_ms = cuda_ms(torch, lambda: torch.zeros(
@@ -237,7 +310,8 @@ def scatter_timings(torch, scatter, label, ids, vals, num_rows, transposed,
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms, kernel_ms=kernel_ms, sort_ms=sort_ms)
+                library_ms=library_ms, kernel_ms=kernel_ms, sort_ms=sort_ms,
+                wrapper_profile=wrapper_profile)
 
 
 def scatter_main_shape(torch, scatter, main_ids, card_name):
@@ -811,7 +885,8 @@ def profile_phase(torch, trainer, name):
         f"{wall_us / 1e3 / steps:.1f} ms/step, device busy "
         f"{busy_us / 1e3 / steps:.1f} ms/step ({100 * busy_us / wall_us:.1f}"
         f"% of the wall time, idle {100 - 100 * busy_us / wall_us:.1f}%)")
-    groups = (("scatter kernel", ("scatter_add_rows_kernel",)),
+    groups = (("scatter kernel", ("scatter_add_rows_kernel",
+                                  "scatter_slab_starts_kernel")),
               ("fold kernel", ("fold_octa_cotangent_kernel",)),
               ("matmul", ("gemm", "Gemm")),
               ("sort", ("Sort", "sort")),

@@ -2,8 +2,10 @@
 
 Counterpart of ``ndjir_tpu/ops/scatter_pallas.py``.  The TPU kernel
 (``_scatter_kernel``) becomes ``csrc/scatter_add_rows.cu``: the wrappers
-here sort the ids (stable) and permute the values, then launch it on the
-current stream; it writes every row of the output.  On a CPU tensor they
+here sort the ids (stable) and hand the kernel the sort's permutation,
+through which it reads the values in their own dtype; a pre-pass finds
+each slab's range of sorted positions, then the kernel writes every row of
+the output, all on the current stream.  On a CPU tensor they
 compute the same function with the plain version,
 ``zeros(num_rows, D).index_add_``; on a CUDA tensor they launch the kernel
 or raise.
@@ -25,7 +27,13 @@ from torch.autograd.function import once_differentiable
 from ndjir_torch import kernels
 
 _KERNEL = "scatter_add_rows"
-_MAX_D = 8192  # the kernel builds a slab of 8192 floats in shared memory
+_MAX_D = 1024  # a warp's slab holds at least one row
+# (D <= 4, D > 4), where a warp's lanes are updates or columns: output floats
+# per slab, which a warp builds in its own shared memory when updates land
+# in it (256 rows at D=4, 64 at D=32), and the updates above which a whole
+# block sums a slab
+_SLAB_FLOATS = (1024, 2048)
+_HEAVY = (64, 16)
 
 
 def _scatter_add_rows_plain(ids: torch.Tensor, vals: torch.Tensor,
@@ -51,49 +59,115 @@ def _check(ids: torch.Tensor, vals: torch.Tensor, num_rows: int) -> None:
         raise ValueError(f"num_rows must be in [1, 2^31), got {num_rows}")
 
 
-def _launch(ids_sorted: torch.Tensor, vals_sorted: torch.Tensor,
+def slab_rows(d: int) -> int:
+    """Output rows per slab at width ``d``: ``_SLAB_FLOATS`` floats, in
+    whole groups of 4 rows (aligned 16-byte stores of a transposed
+    column) where a slab holds 4 rows or more."""
+    rows = max(1, _SLAB_FLOATS[d > 4] // d)
+    return rows - rows % 4 if rows >= 4 else rows
+
+
+def _lib():
+    lib = kernels.load(_KERNEL)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.scatter_slab_starts.argtypes = [p, ll, ll, i, p, p]
+    lib.scatter_add_rows.argtypes = [p, p, p, i, p, p, ll, i, ll, i, i, i, p]
+    lib.scatter_slab_starts.restype = lib.scatter_add_rows.restype = i
+    return lib
+
+
+def _slab_starts_plain(ids_sorted: torch.Tensor, num_rows: int,
+                       rows: int) -> torch.Tensor:
+    """The plain version of the kernel's pre-pass: the first sorted
+    position of each slab of ``rows`` rows, and the end of the last one
+    (ids outside [0, num_rows) lie outside every slab)."""
+    n_slabs = -(-num_rows // rows)
+    bounds = torch.clamp_max(torch.arange(n_slabs + 1, dtype=torch.int64,
+                                          device=ids_sorted.device) * rows,
+                             num_rows)
+    return torch.searchsorted(ids_sorted.long(), bounds).to(torch.int32)
+
+
+def _pre_pass(ids_sorted: torch.Tensor, num_rows: int,
+              rows: int) -> torch.Tensor:
+    """The kernel's scratch, (2 * slabs + 3,) int32, with the slab starts
+    in its first slabs + 1 entries: one launch of the pre-pass."""
+    if ids_sorted.dtype != torch.int32 or not ids_sorted.is_contiguous():
+        raise TypeError("the pre-pass takes contiguous int32 ids")
+    n_slabs = -(-num_rows // rows)
+    scratch = torch.empty(2 * n_slabs + 3, dtype=torch.int32,
+                          device=ids_sorted.device)
+    stream = torch.cuda.current_stream(ids_sorted.device).cuda_stream
+    err = _lib().scatter_slab_starts(ids_sorted.data_ptr(),
+                                     ids_sorted.numel(), num_rows, rows,
+                                     scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{_KERNEL} pre-pass launch failed: cudaError "
+                           f"{err}")
+    return scratch
+
+
+def slab_starts(ids_sorted: torch.Tensor, num_rows: int,
+                rows: int) -> torch.Tensor:
+    """(ceil(num_rows / rows) + 1,) int32: the first position of ``ids_sorted``
+    (int32, ascending) whose id is >= min(s * rows, num_rows), for each s.
+    On a CUDA tensor the kernel's pre-pass, one pass over the ids; on a CPU
+    tensor the plain version."""
+    if not ids_sorted.is_cuda:
+        return _slab_starts_plain(ids_sorted, num_rows, rows)
+    return _pre_pass(ids_sorted, num_rows, rows)[:-(-num_rows // rows) + 1]
+
+
+def _launch(ids_sorted: torch.Tensor, perm: torch.Tensor, vals: torch.Tensor,
             num_rows: int, transposed: bool) -> torch.Tensor:
-    """The kernel alone, on ids sorted ascending (int32) and the values (f32)
-    in the same order: a new (num_rows, D) f32 table, or (D, num_rows) when
-    ``transposed``, every element written by the kernel."""
-    if not (ids_sorted.is_cuda and vals_sorted.is_cuda):
+    """The kernel alone (its pre-passes, then the scatter) on ids sorted
+    ascending (int32), the sort's permutation (int64) and the values (f32
+    or bf16) in input order: a new (num_rows, D) f32 table, or (D,
+    num_rows) when ``transposed``, every element written by the kernel."""
+    if not (ids_sorted.is_cuda and perm.is_cuda and vals.is_cuda):
         raise ValueError("the scatter kernel takes CUDA tensors")
-    if ids_sorted.dtype != torch.int32 or vals_sorted.dtype != torch.float32:
-        raise TypeError(f"int32 ids and float32 values expected, got "
-                        f"{ids_sorted.dtype} and {vals_sorted.dtype}")
-    if not (ids_sorted.is_contiguous() and vals_sorted.is_contiguous()):
+    if ids_sorted.dtype != torch.int32 or perm.dtype != torch.int64 \
+            or vals.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int32 ids, an int64 permutation and float32 or "
+                        f"bfloat16 values expected, got {ids_sorted.dtype}, "
+                        f"{perm.dtype} and {vals.dtype}")
+    if not (ids_sorted.is_contiguous() and perm.is_contiguous()
+            and vals.is_contiguous()):
         raise ValueError("the scatter kernel takes contiguous tensors")
-    n, d = vals_sorted.shape
+    n, d = vals.shape
     if not 1 <= d <= _MAX_D:
         raise ValueError(f"the scatter kernel takes 1 <= D <= {_MAX_D}, "
                          f"got {d}")
-    lib = kernels.load(_KERNEL)
-    fn = lib.scatter_add_rows_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    rows = slab_rows(d)
+    scratch = _pre_pass(ids_sorted, num_rows, rows)
     shape = (d, num_rows) if transposed else (num_rows, d)
-    out = torch.empty(shape, dtype=torch.float32, device=vals_sorted.device)
-    stream = torch.cuda.current_stream(vals_sorted.device).cuda_stream
-    err = fn(ids_sorted.data_ptr(), vals_sorted.data_ptr(), out.data_ptr(),
-             n, d, num_rows, int(transposed), stream)
+    out = torch.empty(shape, dtype=torch.float32, device=vals.device)
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    with torch.cuda.device(vals.device):
+        err = _lib().scatter_add_rows(
+            ids_sorted.data_ptr(), perm.data_ptr(), vals.data_ptr(),
+            int(vals.dtype == torch.bfloat16), scratch.data_ptr(),
+            out.data_ptr(), n, d, num_rows, rows, int(transposed),
+            _HEAVY[d > 4], stream)
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: cudaError {err}")
     return out
 
 
-def sort_updates(ids: torch.Tensor, vals: torch.Tensor):
-    """(ids sorted ascending as int32, the values as f32 in the same order);
-    the sort is stable, so equal ids keep their input order."""
-    ids_s, perm = torch.sort(ids.to(torch.int32), stable=True)
-    return ids_s, vals.index_select(0, perm).to(torch.float32).contiguous()
+def sort_updates(ids: torch.Tensor):
+    """(ids sorted ascending as int32, the sort's int64 permutation); the
+    sort is stable, so equal ids keep their input order.  Only the keys
+    are sorted: the kernel reads the values through the permutation."""
+    return torch.sort(ids.to(torch.int32), stable=True)
 
 
 def _scatter_add_rows_cuda(ids: torch.Tensor, vals: torch.Tensor,
                            num_rows: int, transposed: bool) -> torch.Tensor:
     """Sort, then one launch of the kernel (counted in ``LAUNCHES``)."""
-    out = _launch(*sort_updates(ids, vals), num_rows, transposed)
+    if vals.dtype not in (torch.float32, torch.bfloat16):
+        vals = vals.float()
+    out = _launch(*sort_updates(ids), vals.contiguous(), num_rows,
+                  transposed)
     kernels.LAUNCHES[_KERNEL] += 1
     return out
 

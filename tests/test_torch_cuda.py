@@ -15,6 +15,7 @@ import torch
 from ndjir_torch import kernels
 from ndjir_torch.models.fields import affine_apply
 from ndjir_torch.ops import fold, grid, octa_build
+from ndjir_torch.ops import scatter
 from ndjir_torch.ops.scatter import (
     _scatter_add_rows_plain,
     gather_rows,
@@ -40,8 +41,8 @@ def _inputs(case, d, device):
         ids = rng.randint(0, M, 3000)
     elif case == "hot_row":     # a run far longer than a block has threads
         ids = np.concatenate([np.full(20_000, 4095), rng.randint(0, M, 300)])
-    else:                       # rows either side of 2048- and 4096-row slabs
-        ids = np.repeat([0, 2047, 2048, 4095, 4096, 8191], 25)
+    else:                       # rows either side of the kernel's slabs
+        ids = np.repeat([0, 31, 32, 63, 64, 255, 256, 4095, 4096, 8191], 25)
     vals = rng.randn(len(ids), d).astype(np.float32)
     return (torch.from_numpy(ids).to(device),
             torch.from_numpy(vals).to(device))
@@ -66,6 +67,67 @@ def test_scatter_kernel_matches_plain_version(cuda, case, d):
     assert (got_t.double() - want.t()).abs().max().item() <= tol
 
 
+def _edge_inputs(case, rng):
+    """(ids, num_rows, D, transposed, values' dtype) of one edge case."""
+    if case == "no_updates":
+        return np.zeros(0, np.int64), 10_007, 32, True, torch.float32
+    if case == "one_busy_slab":             # every slab empty but one
+        rows = scatter.slab_rows(4)
+        return 5 * rows + rng.randint(0, rows, 3000), 40 * rows + 3, 4, \
+            False, torch.float32
+    if case == "ids_outside":               # dropped, as XLA drops them
+        ids = rng.randint(-5000, 65_000, 20_000)
+        ids[::7] = 2 ** 31 - 1
+        return ids, 60_001, 32, True, torch.float32
+    if case.startswith("ragged_d"):         # rows not a multiple of a slab
+        return rng.randint(0, 30_011, 8000), 30_011, int(case[8:]), False, \
+            torch.float32
+    if case == "hot_row_d32_bf16":
+        ids = np.concatenate([np.full(20_000, 4095),
+                              rng.randint(0, 65_536, 5000)])
+        return rng.permutation(ids), 65_536, 32, True, torch.bfloat16
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["no_updates", "one_busy_slab",
+                                  "ids_outside", "ragged_d1", "ragged_d3",
+                                  "ragged_d33", "hot_row_d32_bf16"])
+def test_scatter_kernel_edge_cases(cuda, case):
+    ids_np, num_rows, d, transposed, dtype = _edge_inputs(
+        case, np.random.RandomState(21))
+    rng = np.random.RandomState(22)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    vals = torch.from_numpy(rng.randn(len(ids_np), d).astype(np.float32)) \
+        .to(dtype).to(cuda)
+    fn = scatter_add_rows_t if transposed else scatter_add_rows
+    got, again = fn(ids, vals, num_rows), fn(ids, vals, num_rows)
+    assert torch.equal(got, again)           # no atomics: bitwise repeatable
+    keep = (ids >= 0) & (ids < num_rows)
+    want = _scatter_add_rows_plain(ids[keep], vals[keep], num_rows,
+                                   acc_dtype=torch.float64)
+    want = want.t() if transposed else want
+    assert got.shape == want.shape and got.dtype == torch.float32
+    tol = 1e-5 * max(1.0, want.abs().max().item() if want.numel() else 0.0)
+    assert (got.double() - want).abs().max().item() <= tol
+    if case == "no_updates":
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4, 32])
+def test_slab_pre_pass_is_searchsorted(cuda, d):
+    rng = np.random.RandomState(23)
+    ids = np.concatenate([rng.randint(-50, 20_050, 6000),
+                          np.full(500, 4100)])
+    ids32 = scatter.sort_updates(torch.from_numpy(ids).to(cuda))[0]
+    rows = scatter.slab_rows(d)
+    for num_rows in (20_000, 4 * rows, 4 * rows + 1):
+        got = scatter.slab_starts(ids32, num_rows, rows)
+        assert torch.equal(got, scatter._slab_starts_plain(ids32, num_rows,
+                                                           rows))
+
+
 @pytest.mark.cuda
 def test_gather_rows_backward_on_the_card_matches_cpu(cuda):
     rng = np.random.RandomState(3)
@@ -85,7 +147,7 @@ def test_gather_rows_backward_on_the_card_matches_cpu(cuda):
 def test_scatter_refuses_what_the_kernel_does_not_take(cuda):
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        scatter_add_rows(ids, torch.zeros(4, 8193, device=cuda), 10)
+        scatter_add_rows(ids, torch.zeros(4, 1025, device=cuda), 10)
     with pytest.raises(ValueError):
         scatter_add_rows(ids.cpu(), torch.zeros(4, 4, device=cuda), 10)
 

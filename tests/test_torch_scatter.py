@@ -18,9 +18,13 @@ import pytest
 import torch
 
 from ndjir_torch.ops.scatter import (
+    _slab_starts_plain,
     gather_rows,
     scatter_add_rows,
     scatter_add_rows_t,
+    slab_rows,
+    slab_starts,
+    sort_updates,
 )
 
 torch.set_num_threads(2)
@@ -154,3 +158,64 @@ def test_gather_rows_backward_is_not_differentiable_again():
     # error, not a silent zero
     with pytest.raises(RuntimeError):
         torch.autograd.grad(g.sum(), t)
+
+
+# the wrapper's helpers around the kernel: the stable key sort, the slab
+# size and the plain version of the kernel's slab pre-pass
+
+STARTS_CASES = pytest.mark.parametrize("case", [
+    "random", "hot_row", "slab_edges", "outside", "empty"])
+
+
+def _sorted_ids(case):
+    rng = np.random.RandomState(31)
+    if case == "outside":       # ids below 0 and at or past num_rows
+        ids = np.concatenate([rng.randint(-40, M + 40, 3000),
+                              np.full(5, 2 ** 31 - 1)])
+    elif case == "empty":
+        ids = np.zeros(0, np.int64)
+    else:
+        ids = _ids(case, rng)
+    return torch.sort(torch.from_numpy(ids).to(torch.int32))[0]
+
+
+@STARTS_CASES
+@pytest.mark.parametrize("rows", [1, 256, 2048, 2730, M])
+@pytest.mark.parametrize("num_rows", [M, M - 3])
+def test_slab_starts_match_a_direct_count(case, rows, num_rows):
+    ids = _sorted_ids(case)
+    got = slab_starts(ids, num_rows, rows)     # CPU: the plain version
+    n_slabs = -(-num_rows // rows)
+    assert got.dtype == torch.int32 and got.shape == (n_slabs + 1,)
+    # start of slab s = how many sorted ids lie below its first row
+    bounds = [min(s * rows, num_rows) for s in range(n_slabs + 1)]
+    want = [int((ids.long() < b).sum()) for b in bounds]
+    assert got.tolist() == want
+    assert torch.equal(got, _slab_starts_plain(ids, num_rows, rows))
+    # the slabs' ranges cover exactly the ids in [0, num_rows)
+    inside = int(((ids >= 0) & (ids < num_rows)).sum())
+    assert int(got[-1] - got[0]) == inside
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 32, 33, 257, 1024])
+def test_slab_rows_fill_the_slab_in_groups_of_four(d):
+    from ndjir_torch.ops.scatter import _SLAB_FLOATS
+
+    F = _SLAB_FLOATS[d > 4]
+    rows = slab_rows(d)
+    assert 1 <= rows and (rows * d <= F or rows == 1)
+    assert rows % 4 == 0 or rows < 4
+    assert rows * d > F - 4 * d  # no smaller than it needs to be
+
+
+def test_sort_updates_is_stable_and_sorts_only_the_keys():
+    rng = np.random.RandomState(32)
+    ids = torch.from_numpy(rng.randint(0, 50, 4000))
+    ids_s, perm = sort_updates(ids)
+    assert ids_s.dtype == torch.int32 and perm.dtype == torch.int64
+    assert torch.equal(ids_s.long(), ids[perm])
+    assert bool((ids_s[1:] >= ids_s[:-1]).all())
+    # stable: equal ids keep their input order, so the permutation rises
+    # inside every run
+    same = ids_s[1:] == ids_s[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())
