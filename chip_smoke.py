@@ -37,13 +37,26 @@ each printing its lines as it goes:
 8. checkpoint -- on the production path, one more epoch that saves a
               checkpoint, and a fresh ``Trainer`` on the same monitor
               directory that resumes from it, bitwise.
+9. cli     -- the entry points on DTU-style scene folders: ``python3 -m
+              ndjir_torch.cli make-synthetic`` in a process of its own
+              (every PNG decoded back and held bitwise against the
+              in-memory scene), then ``ndjir_torch.cli.main`` in this
+              process: the default config's ``train`` (3 epochs, the final
+              validation with its 256^3 extraction and the DTU Chamfer
+              hook against a reference cloud of the scene's sphere),
+              ``render`` of every view, ``eval-image``, ``extract`` at
+              256^3 and ``eval-chamfer``; the production precision's
+              ``train`` (one epoch), ``render`` of two views and
+              ``extract``.  Launch counts around each command, host time
+              per command, the Chamfer's share of the final validation.
 
 Monitor files, rendered images, environment maps and the full profiles go
-to ``--out`` (default ``chip_smoke_out/``); the meshes and the checkpoint
-are deleted once checked.  The last two lines are the ``{"kernels": [...]}``
-record and ``{"ok": true, "device": {...}}``.  Every check raises on
-failure, so the script exits non-zero and prints neither; it does the same
-when there is no CUDA device or ``ndjir_torch`` is not beside it.
+to ``--out`` (default ``chip_smoke_out/``); the meshes, point clouds and
+checkpoints are deleted once checked.  The last two lines are the
+``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
+Every check raises on failure, so the script exits non-zero and prints
+neither; it does the same when there is no CUDA device or ``ndjir_torch``
+is not beside it.
 """
 
 from __future__ import annotations
@@ -1128,6 +1141,269 @@ def checkpoint_phase(torch, trainer):
     shutil.rmtree(trainer.ckpt_dir)  # 689 MB; checked
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the command line
+# ---------------------------------------------------------------------------
+
+# scene of the command-line phase: the in-memory scene of phases 5-8 as a
+# DTU-style folder, and its 2-view copy for the production path's render
+CLI_VIEWS, CLI_RES = 16, 128
+CLI_CHAMFER = ["valid.dtumvs.downsample_density=0.01"]
+CLI_GRID = 256  # extraction grid: the 512^3 one is timed in phase 7
+CLI_EXTRACT = [f"extraction.grid_size={CLI_GRID}"]
+# a DTU scan as IDR's preprocessed folders hold it: 49 views of 1600x1200
+DTU_VIEWS, DTU_H, DTU_W = 49, 1200, 1600
+
+
+def check_scene_folder(np, scene, n_views, res):
+    """The folder decodes, with the port's PNG reader, bitwise to the
+    in-memory scene of the same size, and its cameras are the same."""
+    from ndjir_torch.data.synthetic import render_sphere_scene
+    from ndjir_torch.utils.png import read_png
+
+    images, masks, cameras = render_sphere_scene(n_views, res, res)
+    for i in range(n_views):
+        for sub, want in (("image", images[i]), ("mask", masks[i])):
+            got = read_png(os.path.join(scene, sub, f"{i:06d}.png"))
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{scene}/{sub}/{i:06d}.png does not "
+                                     "decode to the scene's pixels")
+    with np.load(os.path.join(scene, "cameras.npz")) as written:
+        if sorted(written.files) != sorted(cameras) or not all(
+                np.array_equal(written[k], v) for k, v in cameras.items()):
+            raise AssertionError(f"{scene}/cameras.npz differs")
+
+
+def read_series(path):
+    """The values of a monitor ``.series.txt`` file; raises unless there
+    is at least one and all are finite."""
+    with open(path) as f:
+        values = [float(line.split()[1]) for line in f if line.strip()]
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{path}: {values}")
+    return values
+
+
+def chamfer_series(dirname, suffix):
+    """The three Chamfer values in ``dirname`` (Data2STL, STL2Data, mean)
+    of a mesh whose file name ends in ``_<suffix>.obj``."""
+    return [read_series(os.path.join(
+        dirname, f"Chamfer-Distance-{k}-{suffix}-filtered-02.series.txt"))[-1]
+        for k in ("Data2STL", "STL2Data", "Mean")]
+
+
+def remove_large(dirname):
+    """Delete the meshes, point clouds and checkpoints under ``dirname``
+    (checked, or of a failed run: gigabytes that no later phase reads).
+    Returns the bytes deleted."""
+    n = 0
+    for top, _, names in os.walk(dirname):
+        for name in names:
+            if name.endswith((".obj", ".ply", ".msgpack")):
+                n += os.path.getsize(os.path.join(top, name))
+                os.remove(os.path.join(top, name))
+    return n
+
+
+def cli_phase(torch, np, kernels, smi):
+    """Phase 9 (see :func:`cli_commands`), whose large files are deleted
+    whether it passes or fails."""
+    root = os.path.join(OUT_DIR, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return cli_commands(torch, np, kernels, smi, root)
+    finally:
+        log("cli", f"{remove_large(root)} B of meshes, point clouds and "
+            "checkpoints deleted")
+
+
+def cli_commands(torch, np, kernels, smi, root):
+    """The port's entry points on DTU-style scene folders, as a user runs
+    them: ``make-synthetic`` in a process of its own, then, in this
+    process (so the launch counts can be read), ``train`` of the
+    unmodified default config with the final validation's Chamfer hook,
+    ``render``, ``eval-image``, ``extract`` and ``eval-chamfer``; then the
+    production precision's ``train``, ``render`` of two views and
+    ``extract``; last, the folder reader on a scan of DTU's size.  Launch
+    counts set to 0 before and read after each command.  Returns the
+    launches by command, per path."""
+    from ndjir_torch import cli
+    from ndjir_torch.data import dataset
+    from ndjir_torch.extract.mc import _ATTR_SPECS
+    from ndjir_torch.train import trainer as ttrainer
+    from ndjir_torch.utils.mesh_io import save_ply_points
+
+    scene = os.path.join(root, "DTU", "scan1")
+    ref = os.path.join(root, "DTUMVS_ref")
+    none = dict.fromkeys(kernels.SOURCES, 0)
+    times, launches = {}, {"cli_default": {}, "cli_g256_bf16": {}}
+
+    def run(path, command, argv, want, own_process=False):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if own_process:
+            subprocess.run([sys.executable, "-m", "ndjir_torch.cli", command,
+                            *argv], cwd=HERE, check=True, timeout=600)
+        else:
+            cli.main([command, *argv])
+        torch.cuda.synchronize()
+        times[f"{path} {command}"] = 1e3 * (time.perf_counter() - t0)
+        got = dict(kernels.LAUNCHES)
+        if got != dict(none, **want):
+            raise AssertionError(f"{path} {command}: launches {got}, want "
+                                 f"{dict(none, **want)}")
+        if path in launches:
+            launches[path][command] = got
+
+    # the scene folder, written by the module entry point in a process of
+    # its own, and the DTU-style reference: dense samples of its sphere
+    run("cli", "make-synthetic", [scene, str(CLI_VIEWS), str(CLI_RES),
+                                  str(CLI_RES)], {}, own_process=True)
+    check_scene_folder(np, scene, CLI_VIEWS, CLI_RES)
+    u = np.random.RandomState(0).randn(200_000, 3)
+    os.makedirs(os.path.join(ref, "Points", "stl"))
+    save_ply_points(os.path.join(ref, "Points", "stl", "stl001_total.ply"),
+                    0.5 * u / np.linalg.norm(u, axis=1, keepdims=True))
+    log("cli", f"make-synthetic {scene} {CLI_VIEWS} {CLI_RES} {CLI_RES} "
+        f"(subprocess): {times['cli make-synthetic']:.1f} ms; every PNG "
+        "decodes bitwise to render_sphere_scene's arrays; reference cloud "
+        f"of 200,000 points on the r=0.5 sphere (no ObsMask file)")
+
+    # the unmodified default config, its 1500-epoch schedule cut to 3
+    # epochs of 4 steps, then the final checkpoint and the final validation
+    # with the Chamfer hook.  The warm-up keeps its 22 epochs (1.5% of
+    # 1500): cut in proportion it would vanish, and the second and third
+    # epochs would train at the full rate, which leaves no surface
+    mon = os.path.join(root, "default")
+    monitor = f"{mon}_scan1"
+    base = ["--config-name", "default", f"data_path={scene}",
+            f"monitor_base_path={mon}"]
+    timer = Timed(ttrainer, ["render_image", "extract_mesh_for_validation",
+                             "evaluate_by_chamfer", "save_checkpoint"])
+    load_timer = Timed(dataset, ["load_idr_folder"])
+    try:
+        run("cli_default", "train", base + [
+            "train.epoch=3", "train.warmup_term_ratio=7.5",
+            "valid.skip=false", "valid.epoch_interval=0",
+            "valid.index=0", f"valid.dtumvs.ref_dir={ref}", *CLI_CHAMFER,
+            *CLI_EXTRACT], {"scatter_add_rows": 24})
+    finally:
+        timer.restore()
+        load_timer.restore()
+    if not any(n.startswith("Chamfer") for n in os.listdir(monitor)):
+        raise AssertionError("the final validation wrote no Chamfer series "
+                             "(its reason is logged above)")
+    d2s, s2d, mean = chamfer_series(monitor, "mesh00")
+    for name in ("vis_001_d2s.ply", "vis_001_s2d.ply"):
+        if not os.path.getsize(os.path.join(monitor, name)):
+            raise AssertionError(f"{monitor}/{name} empty")
+    losses = read_series(os.path.join(monitor, "Training-loss.series.txt"))
+    if len(losses) != 12:
+        raise AssertionError(f"{len(losses)} training losses, want 12")
+    t = timer.ms
+    validate_ms = sum(t[k] for k in ("render_image",
+                                     "extract_mesh_for_validation",
+                                     "evaluate_by_chamfer"))
+    train_ms = (times["cli_default train"] - validate_ms
+                - t["save_checkpoint"] - load_timer.ms["load_idr_folder"])
+    log("cli", f"default train (12 steps, G=512 f32): "
+        f"{times['cli_default train']:.1f} ms = folder read "
+        f"{load_timer.ms['load_idr_folder']:.1f} + training and set-up "
+        f"{train_ms:.1f} + final checkpoint {t['save_checkpoint']:.1f} + "
+        f"final validation {validate_ms:.1f} (render "
+        f"{t['render_image']:.1f}, {CLI_GRID}^3 extraction with mask "
+        f"trimming {t['extract_mesh_for_validation']:.1f}, Chamfer "
+        f"{t['evaluate_by_chamfer']:.1f} = "
+        f"{100 * t['evaluate_by_chamfer'] / validate_ms:.1f}% of the "
+        f"validation); Chamfer Data2STL {d2s:.6g}, STL2Data {s2d:.6g}, "
+        f"mean {mean:.6g}; final losses {losses[-4:]}")
+    ck = os.path.join(monitor, "checkpoints")
+
+    run("cli_default", "render", base + [f"model_load_path={ck}"], {})
+    rendered = sorted(os.listdir(os.path.join(monitor, "rendered")))
+    if len(rendered) != 2 * CLI_VIEWS:
+        raise AssertionError(f"{len(rendered)} rendered PNGs, want "
+                             f"{2 * CLI_VIEWS}")
+    run("cli", "eval-image", base, {})
+    evals = {k: read_series(os.path.join(monitor,
+                                             f"Eval-{k}.series.txt"))[-1]
+             for k in ("psnr", "psnr_mask", "psnr_y", "psnr_y_mask", "ssim",
+                       "ssim_mask")}
+    log("cli", f"default render ({CLI_VIEWS} views at "
+        f"{CLI_RES // 4}x{CLI_RES // 4}, and masked): "
+        f"{times['cli_default render']:.1f} ms; eval-image "
+        f"{times['cli eval-image']:.1f} ms: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in evals.items()))
+
+    run("cli_default", "extract", base + [f"model_load_path={ck}",
+                                          *CLI_EXTRACT], {})
+    mesh = os.path.join(monitor,
+                        f"mesh_{CLI_GRID}grid_raw_base_color_mesh00.obj")
+    for attr, _, _ in _ATTR_SPECS:
+        for kind in ("raw", "trimmed"):
+            path = os.path.join(monitor, f"mesh_{CLI_GRID}grid_{kind}_{attr}"
+                                "_mesh00.obj")
+            if not os.path.getsize(path):
+                raise AssertionError(f"{path} empty")
+    vis = os.path.join(root, "eval_chamfer")
+    os.makedirs(vis)
+    run("cli", "eval-chamfer", base + [
+        f"valid.dtumvs.mesh_path={mesh}", "valid.dtumvs.scan=scan1",
+        f"valid.dtumvs.ref_dir={ref}", f"valid.dtumvs.vis_out_dir={vis}",
+        *CLI_CHAMFER], {})
+    e_d2s, e_s2d, e_mean = chamfer_series(vis, "mesh00")
+    log("cli", f"default extract at {CLI_GRID}^3 (six attribute meshes, "
+        f"raw and trimmed, environment map): "
+        f"{times['cli_default extract']:.1f} ms;"
+        f" eval-chamfer on its raw mesh {times['cli eval-chamfer']:.1f} ms:"
+        f" Data2STL {e_d2s:.6g}, STL2Data {e_s2d:.6g}, mean {e_mean:.6g}")
+
+    # the production precision: one epoch of 4 steps, then render of a
+    # 2-view folder and one extraction from its checkpoint
+    mon = os.path.join(root, "g256_bf16")
+    monitor = f"{mon}_scan1"
+    prod = ["--config-name", "default", f"monitor_base_path={mon}", *OCTA]
+    run("cli_g256_bf16", "train", prod + [
+        f"data_path={scene}", "train.epoch=1", "valid.skip=true"],
+        {"scatter_add_rows": 4, "fold_octa_cotangent": 4})
+    ck = os.path.join(monitor, "checkpoints")
+    two = os.path.join(root, "two_views", "scan1")
+    cli.main(["make-synthetic", two, "2", str(CLI_RES), str(CLI_RES)])
+    check_scene_folder(np, two, 2, CLI_RES)
+    two_mon = os.path.join(root, "two_views", "g256_bf16")
+    run("cli_g256_bf16", "render", prod + [
+        f"data_path={two}", f"monitor_base_path={two_mon}",
+        f"model_load_path={ck}"], {"build_octa_table": 2})
+    run("cli_g256_bf16", "extract", prod + [
+        f"data_path={scene}", f"model_load_path={ck}", *CLI_EXTRACT],
+        {"build_octa_table": 1})
+    log("cli", f"g256_bf16 train (4 steps): "
+        f"{times['cli_g256_bf16 train']:.1f} ms; render of 2 views "
+        f"{times['cli_g256_bf16 render']:.1f} ms; extract at {CLI_GRID}^3 "
+        f"{times['cli_g256_bf16 extract']:.1f} ms")
+
+    # the folder reader at the size of a DTU scan's views: the reader undoes
+    # the row filters one anti-diagonal at a time whatever filters a file
+    # uses, so its time per view does not depend on the content
+    dtu = os.path.join(root, "dtu_size", "scan1")
+    cli.main(["make-synthetic", dtu, str(DTU_VIEWS), str(DTU_H), str(DTU_W)])
+    t0 = time.perf_counter()
+    images, masks, _ = dataset.load_idr_folder(dtu)
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    if images.shape != (DTU_VIEWS, DTU_H, DTU_W, 3) or \
+            masks.shape != (DTU_VIEWS, DTU_H, DTU_W):
+        raise AssertionError(f"{dtu}: {images.shape}, {masks.shape}")
+    times["load_idr_folder at DTU size"] = read_ms
+    log("cli", f"load_idr_folder of {DTU_VIEWS} views at {DTU_W}x{DTU_H} "
+        f"(image and mask): {read_ms:.1f} ms, {read_ms / DTU_VIEWS:.1f} ms a "
+        "view")
+    shutil.rmtree(os.path.dirname(dtu))
+    log("cli", "per command (host clock, synchronized; " + smi + "): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items()))
+    log("cli", f"launches by command {launches}")
+    return launches
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1254,14 +1530,23 @@ def main() -> int:
     t0 = time.perf_counter()
     checkpoint_phase(torch, trainer)
     log("checkpoint", f"done in {time.perf_counter() - t0:.1f} s")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cli_launches = cli_phase(torch, np, kernels, smi)
+    log("cli", f"done in {time.perf_counter() - t0:.1f} s")
 
     # main-path launches: the training steps' and the render, validation
-    # and extraction calls'
+    # and extraction calls', then each command's of the command line
     records = [scatter_record, fold_record, build_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],
                           "render_validate_extract": rendered[path][r["name"]]}
                    for path in launches}
+        for path, by_command in cli_launches.items():
+            by_path[path] = {c: n[r["name"]] for c, n in by_command.items()}
         r["launches"] = sum(sum(v.values()) for v in by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] == 0:

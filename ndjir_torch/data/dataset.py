@@ -1,23 +1,41 @@
 """IDR-format multi-view dataset with three ray-sampling modes.
 
-The port's copy of ``ndjir_tpu/data/dataset.py`` (host-side numpy).  It is
-built from in-memory arrays, the decoded contents of an IDR scene folder:
-``image/*`` as uint8, ``mask/*`` as uint8 (binarized at >127.5) and the
-``cameras.npz`` entries (``world_mat_i`` / ``scale_mat_i``; P = W @ S
-decomposed to K, pose).  Reading the folder itself needs an image decoder
-that the port does not depend on (ROADMAP A11).  Ray batches are uniform
-random pixels, random 2^n x 2^m patches, or stratified foreground/background
-by mask ratio, drawn exactly as the reference draws them (parity with
-reference python/dataset.py:28-227).
+The port's copy of ``ndjir_tpu/data/dataset.py`` (host-side numpy).  An IDR
+scene folder holds ``image/*``, ``mask/*`` (binarized at >127.5) and
+``cameras.npz`` (``world_mat_i`` / ``scale_mat_i``; P = W @ S decomposed to
+K, pose).  :func:`load_idr_folder` reads one with the port's own PNG reader
+(:mod:`ndjir_torch.utils.png`), and :meth:`IDRDataset.from_folder` builds
+the dataset from it; the constructor takes the same contents as in-memory
+arrays.  Ray batches are uniform random pixels, random 2^n x 2^m patches, or
+stratified foreground/background by mask ratio, drawn exactly as the
+reference draws them (parity with reference python/dataset.py:28-227).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import glob
+import os
+from typing import Dict, Tuple
 
 import numpy as np
 
 from ndjir_torch.data.cameras import load_K_Rt_from_P
+from ndjir_torch.utils.png import read_png
+
+
+def load_idr_folder(path: str) -> Tuple[np.ndarray, np.ndarray,
+                                        Dict[str, np.ndarray]]:
+    """(images (n, H, W, C) uint8, masks (n, H, W[, C]) uint8, the
+    ``cameras.npz`` entries) of the IDR folder at ``path``, the image and
+    mask files each in sorted name order (reference: dataset.py:111-138)."""
+    image_files = sorted(glob.glob(os.path.join(path, "image", "*")))
+    if not image_files:
+        raise FileNotFoundError(f"No images under {path}/image")
+    images = np.asarray([read_png(f) for f in image_files])
+    mask_files = sorted(glob.glob(os.path.join(path, "mask", "*")))
+    masks = np.asarray([read_png(f) for f in mask_files])
+    with np.load(os.path.join(path, "cameras.npz")) as cameras:
+        return images, masks, dict(cameras)
 
 
 class IDRDataset:
@@ -47,6 +65,14 @@ class IDRDataset:
         # multi-device training, ROADMAP A14)
         self.rng = rng if rng is not None else np.random.RandomState(313)
         self.reset()
+
+    @classmethod
+    def from_folder(cls, conf, path: str | None = None, train: bool = True,
+                    shuffle: bool = False) -> "IDRDataset":
+        """The dataset of the IDR folder at ``path`` (default
+        ``conf.data_path``)."""
+        path = conf.data_path if path is None else path
+        return cls(conf, *load_idr_folder(path), train=train, shuffle=shuffle)
 
     def _decode(self, images, masks, cameras):
         images = (np.asarray(images) / 255.0).astype(np.float32)

@@ -1,0 +1,252 @@
+"""DTU-MVS Chamfer-distance evaluation (DTUeval-python protocol); the port's
+copy of ``ndjir_tpu/eval/chamfer.py``, host code in numpy and scipy as
+there.
+
+Parity with reference python/evaluate_chamfer_dtumvs.py:54-207 (itself a
+DTUeval-python port): mesh -> optional laplacian smoothing -> per-triangle
+grid point sampling at the downsample density -> kd-tree radius downsample
+-> ObsMask bounding -> data<->STL nearest-neighbor means (distances > max_dist
+dropped) -> colored error PLYs + monitor series.
+
+Differences from the reference: triangle sampling is vectorized numpy
+instead of a multiprocessing pool; kd-trees are scipy cKDTree; missing
+ObsMask/Plane .mat files degrade gracefully (no masking) so non-DTU scenes
+can be scored too.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+from scipy.spatial import cKDTree
+
+from ndjir_torch.utils.mesh_io import load_obj, save_ply_points
+from ndjir_torch.utils.monitor import Monitor, MonitorSeries, logger
+
+
+def laplacian_smooth(verts: np.ndarray, tris: np.ndarray,
+                     iterations: int) -> np.ndarray:
+    """open3d filter_smooth_simple semantics: v' = (v + sum(neighbors))
+    / (1 + N) — self weight 1/(1+N), matching the reference's DTU protocol
+    (reference: evaluate_chamfer_dtumvs.py:81-82)."""
+    if iterations <= 0:
+        return verts
+    n = len(verts)
+    edges = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]],
+                            tris[:, [2, 0]]])
+    edges = np.unique(np.concatenate([edges, edges[:, ::-1]]), axis=0)
+    v = verts.astype(np.float64)
+    for _ in range(iterations):
+        acc = np.zeros_like(v)
+        cnt = np.zeros((n, 1))
+        np.add.at(acc, edges[:, 0], v[edges[:, 1]])
+        np.add.at(cnt, edges[:, 0], 1.0)
+        has = (cnt > 0)[:, 0]
+        v[has] = (v[has] + acc[has]) / (1.0 + cnt[has])
+    return v.astype(np.float32)
+
+
+def sample_tri_grid(verts: np.ndarray, tris: np.ndarray,
+                    thresh: float) -> np.ndarray:
+    """Barycentric-grid samples per triangle at ~thresh spacing
+    (reference: sample_single_tri + the n1/n2 derivation,
+    evaluate_chamfer_dtumvs.py:32-108), vectorized."""
+    tri_vert = verts[tris]
+    v1 = tri_vert[:, 1] - tri_vert[:, 0]
+    v2 = tri_vert[:, 2] - tri_vert[:, 0]
+    l1 = np.linalg.norm(v1, axis=-1, keepdims=True)
+    l2 = np.linalg.norm(v2, axis=-1, keepdims=True)
+    area2 = np.linalg.norm(np.cross(v1, v2), axis=-1, keepdims=True)
+    nz = (area2 > 0)[:, 0]
+    l1, l2, area2, v1, v2, tv0 = (l1[nz], l2[nz], area2[nz], v1[nz], v2[nz],
+                                  tri_vert[nz, 0])
+    thr = thresh * np.sqrt(l1 * l2 / area2)
+    n1 = np.floor(l1 / thr).astype(np.int64)[:, 0]
+    n2 = np.floor(l2 / thr).astype(np.int64)[:, 0]
+
+    outs = []
+    # group by (n1, n2) so each group is one vectorized grid expansion
+    key = n1 * 100000 + n2
+    for k in np.unique(key):
+        sel = key == k
+        kn1, kn2 = int(n1[sel][0]), int(n2[sel][0])
+        c = np.mgrid[:kn1 + 1, :kn2 + 1].astype(np.float64) + 0.5
+        c[0] /= max(kn1, 1e-7)
+        c[1] /= max(kn2, 1e-7)
+        c = c.transpose(1, 2, 0).reshape(-1, 2)
+        k_in = c[c.sum(axis=-1) < 1]  # (m, 2)
+        if len(k_in) == 0:
+            continue
+        q = (v1[sel][:, None, :] * k_in[None, :, :1]
+             + v2[sel][:, None, :] * k_in[None, :, 1:]
+             + tv0[sel][:, None, :])
+        outs.append(q.reshape(-1, 3))
+    if not outs:
+        return np.zeros((0, 3))
+    return np.concatenate(outs, axis=0)
+
+
+def radius_downsample(points: np.ndarray, thresh: float) -> np.ndarray:
+    """Greedy radius-based downsample, identical selection rule to the
+    reference's sklearn radius_neighbors loop (:124-133)."""
+    tree = cKDTree(points)
+    mask = np.ones(len(points), bool)
+    for curr in range(len(points)):
+        if mask[curr]:
+            idxs = tree.query_ball_point(points[curr], thresh)
+            mask[idxs] = False
+            mask[curr] = True
+    return points[mask], mask
+
+
+def evaluate_by_chamfer(conf, dataset=None) -> Optional[Tuple[float, float, float]]:
+    from ndjir_torch.data.dataset import IDRDataset
+
+    d = conf.valid.dtumvs
+    mesh_path = d.mesh_path
+    scan_str = str(d.scan)
+    scan = int(scan_str.split("scan")[-1]) if "scan" in scan_str else \
+        (int(scan_str) if scan_str.isdigit() else 0)
+    thresh = d.downsample_density
+    ds = dataset if dataset is not None else IDRDataset.from_folder(
+        conf, train=False)
+
+    # --- data mesh -> dense point cloud ---
+    verts, tris, _ = load_obj(mesh_path)
+    if (conf.valid.filter_iters > 0
+            and conf.geometric_network.voxel.type != "none"):
+        verts = laplacian_smooth(verts, tris, conf.valid.filter_iters)
+    # undo scene normalization (reference :88)
+    verts_w = verts * ds.scale + ds.trans
+    new_pts = sample_tri_grid(verts_w, tris, thresh)
+    data_pcd = np.concatenate([verts_w, new_pts], axis=0)
+
+    rng = np.random.default_rng(0)
+    rng.shuffle(data_pcd, axis=0)
+    data_down, _ = radius_downsample(data_pcd, thresh)
+
+    # --- ObsMask bounding (graceful if refs missing) ---
+    obs_path = os.path.join(d.ref_dir, "ObsMask", f"ObsMask{scan}_10.mat")
+    stl_path = os.path.join(d.ref_dir, "Points", "stl",
+                            f"stl{scan:03d}_total.ply")
+    if not os.path.exists(stl_path):
+        logger.info(f"No DTU reference at {stl_path}; skipping Chamfer")
+        return None
+
+    inbound_idx = np.arange(len(data_down))
+    if os.path.exists(obs_path):
+        from scipy.io import loadmat
+
+        m = loadmat(obs_path)
+        ObsMask, BB, Res = m["ObsMask"], m["BB"].astype(np.float32), m["Res"]
+        patch = d.patch_size
+        inbound = ((data_down >= BB[:1] - patch)
+                   & (data_down < BB[1:] + patch * 2)).sum(axis=-1) == 3
+        data_in = data_down[inbound]
+        grid = np.around((data_in - BB[:1]) / Res).astype(np.int32)
+        grid_ok = ((grid >= 0)
+                   & (grid < np.expand_dims(ObsMask.shape, 0))).sum(axis=-1) == 3
+        gi = grid[grid_ok]
+        in_obs = ObsMask[gi[:, 0], gi[:, 1], gi[:, 2]].astype(bool)
+        data_in_obs = data_in[grid_ok][in_obs]
+        vis_sel = np.where(inbound)[0][grid_ok][in_obs]
+    else:
+        data_in = data_down
+        data_in_obs = data_down
+        vis_sel = inbound_idx
+
+    # --- STL reference cloud ---
+    stl = _read_ply_points(stl_path)
+
+    max_dist = d.max_dist
+    tree_stl = cKDTree(stl)
+    dist_d2s, _ = tree_stl.query(data_in_obs, k=1)
+    mean_d2s = dist_d2s[dist_d2s < max_dist].mean()
+
+    plane_path = os.path.join(d.ref_dir, "ObsMask", f"Plane{scan}.mat")
+    if os.path.exists(plane_path):
+        from scipy.io import loadmat
+
+        P = loadmat(plane_path)["P"]
+        stl_hom = np.concatenate([stl, np.ones_like(stl[:, :1])], -1)
+        above_sel = (P.reshape(1, 4) * stl_hom).sum(-1) > 0
+        stl_above = stl[above_sel]
+    else:
+        above_sel = np.ones(len(stl), bool)
+        stl_above = stl
+    tree_data = cKDTree(data_in)
+    dist_s2d, _ = tree_data.query(stl_above, k=1)
+    mean_s2d = dist_s2d[dist_s2d < max_dist].mean()
+
+    # --- colored error clouds (reference :177-192) ---
+    vis_dist = d.visualize_threshold
+    Rc = np.array([[1, 0, 0.]]); Gc = np.array([[0, 1, 0.]])
+    Bc = np.array([[0, 0, 1.]]); Wc = np.array([[1, 1, 1.]])
+    data_color = np.tile(Bc, (len(data_down), 1))
+    alpha = (dist_d2s.clip(max=vis_dist) / vis_dist)[:, None]
+    data_color[vis_sel] = Rc * alpha + Wc * (1 - alpha)
+    data_color[vis_sel[dist_d2s >= max_dist]] = Gc
+    save_ply_points(os.path.join(d.vis_out_dir, f"vis_{scan:03d}_d2s.ply"),
+                    data_down, data_color)
+    stl_color = np.tile(Bc, (len(stl), 1))
+    alpha_s = (dist_s2d.clip(max=vis_dist) / vis_dist)[:, None]
+    stl_color[np.where(above_sel)[0]] = Rc * alpha_s + Wc * (1 - alpha_s)
+    stl_color[np.where(above_sel)[0][dist_s2d >= max_dist]] = Gc
+    save_ply_points(os.path.join(d.vis_out_dir, f"vis_{scan:03d}_s2d.ply"),
+                    stl, stl_color)
+
+    over_all = (mean_d2s + mean_s2d) / 2
+    monitor = Monitor(d.vis_out_dir)
+    suffix = os.path.basename(mesh_path).split(".")[0].split("_")[-1]
+    fi = conf.valid.filter_iters
+    MonitorSeries(f"Chamfer Distance Data2STL {suffix} filtered {fi:02d}",
+                  monitor).add(0, mean_d2s)
+    MonitorSeries(f"Chamfer Distance STL2Data {suffix} filtered {fi:02d}",
+                  monitor).add(0, mean_s2d)
+    MonitorSeries(f"Chamfer Distance Mean {suffix} filtered {fi:02d}",
+                  monitor).add(0, over_all)
+    return float(mean_d2s), float(mean_s2d), float(over_all)
+
+
+def _read_ply_points(path: str) -> np.ndarray:
+    """Minimal binary/ascii PLY point reader (x, y, z leading properties)."""
+    with open(path, "rb") as f:
+        header = []
+        while True:
+            line = f.readline().decode("ascii", errors="replace").strip()
+            header.append(line)
+            if line == "end_header":
+                break
+        n = 0
+        fmt = "binary_little_endian"
+        props = []
+        in_vertex = False
+        for line in header:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "format":
+                fmt = t[1]
+            elif t[0] == "element":
+                in_vertex = t[1] == "vertex"
+                if in_vertex:
+                    n = int(t[2])
+            elif t[0] == "property" and in_vertex and t[1] != "list":
+                props.append((t[2], t[1]))
+        typemap = {"float": "<f4", "float32": "<f4", "double": "<f8",
+                   "float64": "<f8", "uchar": "u1", "uint8": "u1",
+                   "char": "i1", "int": "<i4", "int32": "<i4",
+                   "uint": "<u4", "short": "<i2", "ushort": "<u2"}
+        if fmt.startswith("binary_little"):
+            dtype = np.dtype([(name, typemap[ty]) for name, ty in props])
+            data = np.frombuffer(f.read(dtype.itemsize * n), dtype=dtype,
+                                 count=n)
+            return np.stack([data["x"], data["y"], data["z"]],
+                            axis=-1).astype(np.float64)
+        # ascii
+        rows = []
+        for _ in range(n):
+            rows.append([float(x) for x in f.readline().split()[:3]])
+        return np.asarray(rows)

@@ -1,5 +1,5 @@
-"""Image-quality metrics: PSNR and SSIM (the port's numpy copy of
-``ndjir_tpu/eval/image.py``).
+"""Image-quality metrics: PSNR (+masked, +YCbCr), SSIM (+masked) (the
+port's numpy copy of ``ndjir_tpu/eval/image.py``).
 
 PSNR parity with reference python/evaluate_image.py:19-29 (computed on
 [0,255] images); SSIM is the standard Wang et al. windowed form (the
@@ -24,6 +24,15 @@ def psnr(img0: np.ndarray, img1: np.ndarray, mask=None) -> float:
     if mse == 0:
         return float("inf")
     return float(20 * np.log10(255.0 / np.sqrt(mse)))
+
+
+def rgb_to_ycbcr(img: np.ndarray) -> np.ndarray:
+    """ITU-R BT.601 full-range conversion; img (..., 3) in [0,1]."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 0.5
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 0.5
+    return np.stack([y, cb, cr], axis=-1)
 
 
 def _gaussian_kernel(size=11, sigma=1.5):
@@ -63,3 +72,30 @@ def ssim_map(img0: np.ndarray, img1: np.ndarray, data_range: float = 1.0,
 def ssim(img0: np.ndarray, img1: np.ndarray, data_range: float = 1.0) -> float:
     """Mean SSIM over channels (valid padding)."""
     return float(np.mean(ssim_map(img0, img1, data_range, mode="valid")))
+
+
+def ssim_masked(img0: np.ndarray, img1: np.ndarray, mask: np.ndarray,
+                data_range: float = 1.0) -> float:
+    """Mask-weighted mean SSIM: the prediction is composited onto the GT
+    background inside the mask, and the per-window SSIM map is averaged with
+    the gaussian-filtered mask as weights, so windows that do not overlap
+    the mask contribute nothing (a plain mean over the composited image
+    scores every all-background window exactly 1.0).
+
+    img* (H, W, C) in [0, 1]; mask (H, W) or (H, W, 1) in {0, 1}.
+    """
+    from scipy.signal import fftconvolve
+
+    m = np.asarray(mask, np.float64)
+    if m.ndim == 3:
+        m = m[..., 0]
+    m3 = (m > 0.5)[..., None]
+    comp = np.where(m3, np.asarray(img0, np.float64),
+                    np.asarray(img1, np.float64))
+    smap = ssim_map(comp, img1, data_range, mode="valid")   # (h, w, C)
+    w = fftconvolve(m, _gaussian_kernel(), mode="valid")    # window overlap
+    w = np.clip(w, 0.0, None)[..., None]
+    denom = w.sum() * smap.shape[-1]
+    if denom <= 0:
+        return float("nan")
+    return float((smap * w).sum() / denom)

@@ -3,12 +3,14 @@ reference python/train.py:33-165).
 
 :func:`train_step` is one gradient step: sample -> render -> loss ->
 autograd (with the eikonal double backward) -> dual Adam.  :class:`Trainer`
-feeds it ray batches and the epoch schedules, validates (a rendered view's
-PSNR and a mesh extraction) on the ``valid`` cadence, saves checkpoints on
-``train.checkpoint_interval_epochs`` and at the end of the schedule, and
-resumes from the newest checkpoint in its monitor directory.  Not ported
-yet, and refused with ``NotImplementedError`` where a config asks for
-them: the DTU Chamfer evaluation of the final validation (ROADMAP A11) and
+reads the IDR scene folder at ``data_path`` (or takes a dataset built from
+arrays), feeds the step ray batches and the epoch schedules, validates (a
+rendered view's PSNR and a mesh extraction; on a DTU scene the final one
+also scores the mesh's Chamfer distance) on the ``valid`` cadence, saves
+checkpoints on ``train.checkpoint_interval_epochs`` and at the end of the
+schedule, and resumes from the newest checkpoint in its monitor directory.
+Not ported yet, and refused with ``NotImplementedError`` where a config asks
+for them: the other grid encodings (ROADMAP A12), the opt-ins of A13 and
 multi-device sharding (A14).
 """
 
@@ -24,9 +26,11 @@ import torch
 from ndjir_torch.config import Config, save_config
 from ndjir_torch.data.cameras import generate_raydir_camloc
 from ndjir_torch.data.dataset import IDRDataset
+from ndjir_torch.eval.chamfer import evaluate_by_chamfer
 from ndjir_torch.eval.image import psnr
 from ndjir_torch.extract.mc import extract_mesh_for_validation
 from ndjir_torch.models.fields import init_model
+from ndjir_torch.ops.grid import GridEncoding
 from ndjir_torch.render.image import render_image
 from ndjir_torch.render.loss import total_loss
 from ndjir_torch.render.renderer import make_mc_cdfs
@@ -99,11 +103,7 @@ def _is_dtu_data(data_path: str) -> bool:
 
 def check_supported(conf) -> None:
     """Refuse, before any work, what the port does not run yet."""
-    if not conf.valid.skip and _is_dtu_data(conf.data_path):
-        raise NotImplementedError(
-            "the final validation's DTU Chamfer evaluation is not ported "
-            "yet (ROADMAP A11: entry points and DTU evaluation); set "
-            "valid.skip=true")
+    GridEncoding(conf.geometric_network.voxel)  # raises for A12's encodings
     if list(conf.parallel.mesh_shape) != [1, 1]:
         raise NotImplementedError(
             "multi-device sharding is not ported yet (ROADMAP A14: "
@@ -118,19 +118,22 @@ def check_supported(conf) -> None:
             "(ROADMAP A13: precision and opt-ins)")
 
 
-def setup_monitor_dir(conf) -> str:
-    """Create <monitor_base>_<scene>, snapshot the config and the port's
-    code (reference: helper.py:99-124)."""
+def setup_monitor_dir(conf, train: bool = True) -> str:
+    """<monitor_base>_<scene>, set as ``conf.monitor_path``; for training,
+    create it and snapshot the config and the port's code there (reference:
+    helper.py:99-124)."""
     scene = str(conf.data_path).rstrip("/").split("/")[-1]
     monitor_path = f"{conf.monitor_base_path}_{scene}"
     conf.monitor_path = monitor_path
-    os.makedirs(monitor_path, exist_ok=True)
-    save_config(conf, os.path.join(monitor_path, "config.yaml"))
-    src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    shutil.copytree(src, os.path.join(monitor_path, "code", "ndjir_torch"),
-                    dirs_exist_ok=True,
-                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc",
-                                                  "build"))
+    if train:
+        os.makedirs(monitor_path, exist_ok=True)
+        save_config(conf, os.path.join(monitor_path, "config.yaml"))
+        src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        shutil.copytree(src, os.path.join(monitor_path, "code",
+                                          "ndjir_torch"),
+                        dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__", "*.pyc",
+                                                      "build"))
     return monitor_path
 
 
@@ -148,15 +151,12 @@ class Trainer:
     def __init__(self, conf: Config, dataset: Optional[IDRDataset] = None,
                  device="cuda", seed: int = 0):
         check_supported(conf)
-        if dataset is None:
-            raise NotImplementedError(
-                "reading an IDR scene folder is not ported yet (ROADMAP A11: "
-                "entry points); pass an IDRDataset built from arrays")
         self.conf = conf
         self.device = torch.device(device)
         self.monitor_path = setup_monitor_dir(conf)
         self.ckpt_dir = os.path.join(self.monitor_path, "checkpoints")
-        self.ds = dataset
+        self.ds = dataset if dataset is not None else IDRDataset.from_folder(
+            conf, train=True, shuffle=True)
         self.params = init_model(conf, seed=seed, device=self.device)
         self.opt_state = init_optimizer(self.params)
         self.lr_w_base, self.lr_f_base = schedules.scaled_base_lrs(conf)
@@ -189,8 +189,10 @@ class Trainer:
         """Render the ``valid.index`` view at ``valid.n_down_samples``, log
         its PSNR against the downsampled ground truth and the image, then
         extract the meshes (rough grid; full grid and mask trimming when
-        ``final``).  An extraction failure is logged and training goes on,
-        as in the JAX package."""
+        ``final``); on a DTU scene (``DTU*/scanN``) the final mesh's Chamfer
+        distance against ``valid.dtumvs.ref_dir`` (reference:
+        train.py:114-118).  An extraction or Chamfer failure is logged and
+        training goes on, as in the JAX package."""
         conf = self.conf
         idx = conf.valid.index % self.ds.size
         pose = self.ds.poses[idx:idx + 1]
@@ -208,10 +210,22 @@ class Trainer:
         self.monitor_psnr.add(epoch, psnr(rimage[:, :, :h, :w],
                                           gt[:, :, :h, :w]))
         try:
-            extract_mesh_for_validation(self.params, conf, self.monitor_path,
-                                        epoch, final=final, dataset=self.ds)
+            fpath = extract_mesh_for_validation(
+                self.params, conf, self.monitor_path, epoch, final=final,
+                dataset=self.ds)
         except Exception as e:  # extraction must never kill training
             logger.exception(f"Mesh extraction failed (continuing): {e!r}")
+            fpath = ""
+        if final and fpath and _is_dtu_data(conf.data_path):
+            d = conf.valid.dtumvs
+            d.mesh_path = fpath
+            d.scan = str(conf.data_path).rstrip("/").split("/")[-1]
+            d.vis_out_dir = self.monitor_path
+            try:
+                evaluate_by_chamfer(conf, dataset=self.ds)
+            except Exception as e:  # scoring must never kill training
+                logger.exception(f"Chamfer evaluation failed (continuing): "
+                                 f"{e!r}")
 
     def next_batch(self):
         """One training batch on the device: (camloc, raydir, color, mask)."""

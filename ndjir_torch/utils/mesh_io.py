@@ -1,12 +1,13 @@
-"""Minimal OBJ mesh IO with per-vertex colors (the port's copy of
-``save_obj`` / ``load_obj`` in ``ndjir_tpu/utils/mesh_io.py``).
+"""Minimal mesh IO: OBJ and PLY writers with per-vertex colors (the port's
+copy of ``ndjir_tpu/utils/mesh_io.py``).
 
 Replaces the reference's trimesh export dependency (reference:
 extract_by_mc.py:197-223 exports per-attribute OBJ meshes with vertex
-colors).  DCC tools (Blender, MeshLab) read the ``v x y z r g b`` OBJ
-vertex-color extension.  The text is the JAX package's, character for
-character: each number goes through the same ``%.6f`` / ``%d`` formatting,
-here applied to whole arrays at once.
+colors; evaluate_chamfer writes colored PLY point clouds).  DCC tools
+(Blender, MeshLab) read the ``v x y z r g b`` OBJ vertex-color extension.
+The files are the JAX package's, byte for byte: each OBJ number goes
+through the same ``%.6f`` / ``%d`` formatting, and each PLY record is the
+same packed little-endian struct, here made for whole arrays at once.
 """
 
 from __future__ import annotations
@@ -58,3 +59,65 @@ def load_obj(path: str):
     F = np.asarray(faces, np.int64)
     C = np.asarray(colors, np.float32) if colors else None
     return V, F, C
+
+
+_XYZ = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+_XYZ_RGB = _XYZ + [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+
+
+def _ply_header(n_verts: int, colored: bool, n_faces=None) -> bytes:
+    header = ["ply", "format binary_little_endian 1.0",
+              f"element vertex {n_verts}",
+              "property float x", "property float y", "property float z"]
+    if colored:
+        header += ["property uchar red", "property uchar green",
+                   "property uchar blue"]
+    if n_faces is not None:
+        header += [f"element face {n_faces}",
+                   "property list uchar int vertex_indices"]
+    header += ["end_header"]
+    return ("\n".join(header) + "\n").encode()
+
+
+def _ply_vertices(v: np.ndarray, c8: np.ndarray | None) -> bytes:
+    """Packed little-endian records: x y z as float32, then r g b as uint8
+    when ``c8`` is given."""
+    rec = np.empty(len(v), np.dtype(_XYZ_RGB if c8 is not None else _XYZ))
+    rec["x"], rec["y"], rec["z"] = v[:, 0], v[:, 1], v[:, 2]
+    if c8 is not None:
+        rec["red"], rec["green"], rec["blue"] = c8[:, 0], c8[:, 1], c8[:, 2]
+    return rec.tobytes()
+
+
+def save_ply_points(path: str, points: np.ndarray,
+                    colors: np.ndarray | None = None) -> None:
+    """Binary little-endian PLY point cloud, optionally with uint8 colors
+    (the bytes of ``ndjir_tpu/utils/mesh_io.py``'s writer)."""
+    pts = np.asarray(points, np.float32).reshape(-1, 3)
+    c8 = None
+    if colors is not None:
+        c8 = (np.clip(np.asarray(colors), 0, 1) * 255).astype(np.uint8)
+    with open(path, "wb") as fp:
+        fp.write(_ply_header(len(pts), c8 is not None))
+        fp.write(_ply_vertices(pts, c8))
+
+
+def save_ply_mesh(path: str, vertices: np.ndarray, faces: np.ndarray,
+                  vertex_colors: np.ndarray | None = None) -> None:
+    """Binary little-endian PLY mesh, optionally with uint8 vertex colors
+    (the bytes of ``ndjir_tpu/utils/mesh_io.py``'s writer)."""
+    v = np.asarray(vertices, np.float32).reshape(-1, 3)
+    f = np.asarray(faces, np.int32).reshape(-1, 3)
+    c8 = None
+    if vertex_colors is not None:
+        c8 = (np.clip(np.asarray(vertex_colors), 0, 1) * 255).astype(np.uint8)
+        if c8.shape[-1] == 1:
+            c8 = np.repeat(c8, 3, axis=-1)
+    tri = np.empty(len(f), np.dtype([("n", "u1"), ("a", "<i4"),
+                                     ("b", "<i4"), ("c", "<i4")]))
+    tri["n"] = 3
+    tri["a"], tri["b"], tri["c"] = f[:, 0], f[:, 1], f[:, 2]
+    with open(path, "wb") as fp:
+        fp.write(_ply_header(len(v), c8 is not None, len(f)))
+        fp.write(_ply_vertices(v, c8))
+        fp.write(tri.tobytes())

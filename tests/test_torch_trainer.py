@@ -1,7 +1,9 @@
 """The port's ``Trainer`` on the CPU at a tiny size: the epoch schedule's
-one-epoch lag, the step record, its checkpoint, and what it refuses
-because it is not ported yet.  Its arithmetic is held against the JAX
-reference by ``tests/test_torch_slice.py``."""
+one-epoch lag, the step record, its checkpoint, an IDR folder with the DTU
+Chamfer hook of the final validation, and what it refuses because it is
+not ported yet.  Its arithmetic is held against the JAX reference by
+``tests/test_torch_slice.py``, its command line by
+``tests/test_torch_cli.py``."""
 
 import os
 
@@ -11,10 +13,14 @@ import torch
 
 from ndjir_torch.config import load_config
 from ndjir_torch.data.dataset import IDRDataset
-from ndjir_torch.data.synthetic import render_sphere_scene
+from ndjir_torch.data.synthetic import (
+    make_synthetic_scene,
+    render_sphere_scene,
+)
 from ndjir_torch.train import schedules
 from ndjir_torch.train.optim import tree_leaves_with_path
 from ndjir_torch.train.trainer import Trainer
+from ndjir_torch.utils.mesh_io import save_ply_points
 
 torch.set_num_threads(2)
 
@@ -65,10 +71,6 @@ def test_lr_follows_the_lagged_schedule_then_every_leaf_moves(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    # validation (A8) is ported; on a DTU scene its final Chamfer
-    # evaluation (A11) is not, so the case keeps its id and names A11
-    pytest.param(["valid.skip=false", "data_path=DTU/scan65"], "A11",
-                 id="valid.skip=false-A8"),
     (["parallel.mesh_shape=[2, 1]"], "A14"),
     # the bf16 MLP is ported; the production preset with head
     # rematerialization is not yet
@@ -90,3 +92,36 @@ def test_refuses_to_reach_a_checkpoint(tmp_path):
     tr.train(stop_epoch=1)
     assert sorted(os.listdir(os.path.join(tr.monitor_path, "checkpoints"))) \
         == ["ckpt_0000000.json", "ckpt_0000000.msgpack"]
+
+
+def test_reads_a_dtu_folder_and_scores_the_final_mesh(tmp_path):
+    """``Trainer(conf)`` with no dataset reads ``data_path``; the final
+    validation on a ``DTU*/scanN`` path scores the extracted mesh against
+    ``valid.dtumvs.ref_dir`` and writes the Chamfer series and the colored
+    error clouds to the monitor directory."""
+    scene = make_synthetic_scene(str(tmp_path / "DTU" / "scan7"), n_views=4,
+                                 H=16, W=16)
+    ref = tmp_path / "ref" / "Points" / "stl"
+    ref.mkdir(parents=True)
+    u = np.random.RandomState(0).randn(3000, 3)
+    save_ply_points(str(ref / "stl007_total.ply"),
+                    0.5 * u / np.linalg.norm(u, axis=1, keepdims=True))
+    conf = load_config("default", overrides=[
+        o for o in TINY if not o.startswith(("valid.skip", "data_path"))] + [
+        f"data_path={scene}", f"monitor_base_path={tmp_path}/mon",
+        "valid.skip=false", "train.epoch=1", "valid.n_rays=64",
+        "extraction.grid_size=24", "extraction.rough_grid_size=24",
+        "extraction.batch_size=4096", f"valid.dtumvs.ref_dir={tmp_path}/ref",
+        "valid.dtumvs.downsample_density=0.05"])
+    tr = Trainer(conf, device="cpu", seed=0)
+    assert tr.ds.size == 4 and (tr.ds.H, tr.ds.W) == (16, 16)
+    tr.train()
+    names = os.listdir(tr.monitor_path)
+    series = sorted(n for n in names if n.startswith("Chamfer-Distance"))
+    assert len(series) == 3, names
+    for name in series:
+        with open(os.path.join(tr.monitor_path, name)) as f:
+            index, value = f.read().split()
+        assert index == "0" and np.isfinite(float(value))
+    assert "vis_007_d2s.ply" in names and "vis_007_s2d.ply" in names
+    assert conf.valid.dtumvs.scan == "scan7"
