@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Two paths are driven: the unmodified default config (G=512 f32 grid, f32
-MLP; one scatter per differentiated grid query, two per step) and the
-reference's production precision (``bench.py:204``: G=256 bf16 grid in
+Two paths are driven in full: the unmodified default config (G=512 f32
+grid, f32 MLP; one scatter per differentiated grid query, two per step)
+and the reference's production precision (``bench.py:204``: G=256 bf16 grid in
 the octa layout, bf16 MLP operands; one scatter and one fold per step, and
-one octa table build per ``render_image`` or ``extract`` call).  Phases,
-each printing its lines as it goes:
+one octa table build per ``render_image`` or ``extract`` call); the
+other grid encodings' presets through training and the command line
+(phase 10).  Phases, each printing its lines as it goes:
 
 1. device  -- the card, as ``nvidia-smi`` names it, with its power limit.
 2. build   -- every hand-written kernel of ``ndjir_torch/csrc``, compiled
@@ -49,6 +50,16 @@ each printing its lines as it goes:
               ``train`` (one epoch), ``render`` of two views and
               ``extract``.  Launch counts around each command, host time
               per command, the Chamfer's share of the final validation.
+10. encodings -- the presets of the other grid encodings at their
+              published widths (``custom``: lanczos_voxel G=512 D=4;
+              ``triplaneline`` G=2048 D=8; ``voxel_hash`` 16 levels):
+              every scatter (B1) of one real step against its float64
+              sums, repeated bitwise, timed beside ``index_add_``; two
+              in-memory epochs (ms/step, peak memory, launches); loss,
+              gradients, a rendered view and an SDF volume on the card
+              against the CPU at f32; ``cli train`` of one epoch each with
+              its exact B1 launches; ``cli render`` and ``cli extract`` of
+              triplaneline, which launch no kernel.
 
 Monitor files, rendered images, environment maps and the full profiles go
 to ``--out`` (default ``chip_smoke_out/``); the meshes, point clouds and
@@ -573,7 +584,14 @@ PARITY = {
 }
 
 
-def parity_phase(torch, np, label):
+# the parity phases' grid: a small dense voxel grid on the default config
+G48 = ("geometric_network.voxel.grid_size=48",)
+
+
+def parity_phase(torch, np, label, config="default", base=G48, spec=None):
+    """Loss, monitors and every gradient leaf of one small batch (B=2, R=4)
+    of ``config`` with ``base`` and the overrides of ``spec`` (default
+    ``PARITY[label]``), on the CPU and on the card."""
     from ndjir_torch.config import load_config
     from ndjir_torch.models.fields import init_model
     from ndjir_torch.render.renderer import make_mc_cdfs
@@ -581,9 +599,8 @@ def parity_phase(torch, np, label):
     from ndjir_torch.train.trainer import loss_and_grads
 
     B, R = 2, 4
-    extra, loss_rtol, mon_rtol, mon_atol, grad_tol = PARITY[label]
-    conf = load_config("default", overrides=[
-        "geometric_network.voxel.grid_size=48", *extra])
+    extra, loss_rtol, mon_rtol, mon_atol, grad_tol = spec or PARITY[label]
+    conf = load_config(config, overrides=[*base, *extra])
     rng = np.random.RandomState(7)
     camloc = np.tile(np.asarray([[0.1, -0.2, 2.5]], np.float32), (B, 1))
     raydir = rng.randn(B, R, 3).astype(np.float32) \
@@ -635,7 +652,9 @@ def parity_phase(torch, np, label):
             raise AssertionError(f"{label}: gradient of {'/'.join(path)} "
                                  f"differs by {diff.max().item()} (leaf max "
                                  f"{scale})")
-    log("parity", f"{label}, G=48 B={B} R={R}: loss {loss_g:.7g} on the "
+    v = conf.geometric_network.voxel
+    log("parity", f"{label}, {v.type} G={v.grid_size} D={v.feature_size} "
+        f"B={B} R={R}: loss {loss_g:.7g} on the "
         f"card vs {loss_c:.7g} on CPU (rel {abs(loss_g / loss_c - 1):.3g}, "
         f"tol {loss_rtol}); {len(mons_c)} monitors, worst rel "
         f"{worst_mon:.3g} (tol {mon_rtol}); {len(grads_c)} gradient "
@@ -654,11 +673,13 @@ RENDER_PARITY = {
 }
 
 
-def render_parity_phase(torch, np, label, devices=("cpu", "cuda")):
+def render_parity_phase(torch, np, label, devices=("cpu", "cuda"),
+                        config="default", base=G48, spec=None):
     """A 16x16 view (64x64 at valid.n_down_samples=2, one chunk) and a 32^3
-    SDF volume from the same G=48 parameters on the CPU and on the card
-    (``devices``).  Both renders draw the same Monte-Carlo uniforms (made
-    on the CPU)."""
+    SDF volume from the same parameters (``config`` with ``base`` and the
+    overrides of ``spec``, default ``RENDER_PARITY[label]``) on the CPU and
+    on the card (``devices``).  Both renders draw the same Monte-Carlo
+    uniforms (made on the CPU)."""
     from ndjir_torch.config import load_config
     from ndjir_torch.data.dataset import IDRDataset
     from ndjir_torch.data.synthetic import render_sphere_scene
@@ -667,10 +688,9 @@ def render_parity_phase(torch, np, label, devices=("cpu", "cuda")):
     from ndjir_torch.render import image
     from ndjir_torch.train.optim import tree_map
 
-    extra, tols, sdf_tol = RENDER_PARITY[label]
-    conf = load_config("default", overrides=[
-        "geometric_network.voxel.grid_size=48", "valid.n_down_samples=2",
-        *extra])
+    extra, tols, sdf_tol = spec or RENDER_PARITY[label]
+    conf = load_config(config, overrides=[*base, "valid.n_down_samples=2",
+                                          *extra])
     images, masks, cameras = render_sphere_scene(n_views=2, H=64, W=64)
     ds = IDRDataset(conf, images, masks, cameras, train=False, shuffle=False)
     params = init_model(conf, seed=0, device="cpu")
@@ -704,7 +724,9 @@ def render_parity_phase(torch, np, label, devices=("cpu", "cuda")):
     d = float(np.abs(vol[1] - vol[0]).max())
     if not d <= sdf_tol * scale:
         raise AssertionError(f"{label}: SDF volume differs by {d}")
-    log("parity", f"render {label}, G=48, 16x16 view: max |card - CPU| "
+    v = conf.geometric_network.voxel
+    log("parity", f"render {label}, {v.type} G={v.grid_size}, 16x16 view: "
+        f"max |card - CPU| "
         f"{', '.join(diffs)}; 32^3 SDF volume {d:.3g} (tol "
         f"{sdf_tol * scale:.3g})")
 
@@ -713,13 +735,13 @@ def render_parity_phase(torch, np, label, devices=("cpu", "cuda")):
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def make_trainer(torch, overrides=(), tag="monitor"):
+def make_trainer(torch, overrides=(), tag="monitor", config="default"):
     from ndjir_torch.config import load_config
     from ndjir_torch.data.dataset import IDRDataset
     from ndjir_torch.data.synthetic import render_sphere_scene
     from ndjir_torch.train.trainer import Trainer
 
-    conf = load_config("default", overrides=[
+    conf = load_config(config, overrides=[
         "valid.skip=true", "data_path=synthetic/sphere",
         f"monitor_base_path={os.path.join(OUT_DIR, tag)}", *overrides])
     images, masks, cameras = render_sphere_scene(n_views=16, H=128, W=128)
@@ -1205,6 +1227,32 @@ def remove_large(dirname):
     return n
 
 
+def run_command(torch, kernels, times, path, command, argv, want,
+                own_process=False):
+    """``python -m ndjir_torch.cli <command> <argv>`` (in this process, so
+    the launch counts can be read, unless ``own_process``), launch counts
+    set to 0 before and read after, its host time (synchronized) into
+    ``times``.  Raises unless the launches are exactly ``want``, every
+    other kernel 0; returns them."""
+    from ndjir_torch import cli
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if own_process:
+        subprocess.run([sys.executable, "-m", "ndjir_torch.cli", command,
+                        *argv], cwd=HERE, check=True, timeout=600)
+    else:
+        cli.main([command, *argv])
+    torch.cuda.synchronize()
+    times[f"{path} {command}"] = 1e3 * (time.perf_counter() - t0)
+    got = dict(kernels.LAUNCHES)
+    want = dict(dict.fromkeys(kernels.SOURCES, 0), **want)
+    if got != want:
+        raise AssertionError(f"{path} {command}: launches {got}, want "
+                             f"{want}")
+    return got
+
+
 def cli_phase(torch, np, kernels, smi):
     """Phase 9 (see :func:`cli_commands`), whose large files are deleted
     whether it passes or fails."""
@@ -1235,23 +1283,11 @@ def cli_commands(torch, np, kernels, smi, root):
 
     scene = os.path.join(root, "DTU", "scan1")
     ref = os.path.join(root, "DTUMVS_ref")
-    none = dict.fromkeys(kernels.SOURCES, 0)
     times, launches = {}, {"cli_default": {}, "cli_g256_bf16": {}}
 
     def run(path, command, argv, want, own_process=False):
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        if own_process:
-            subprocess.run([sys.executable, "-m", "ndjir_torch.cli", command,
-                            *argv], cwd=HERE, check=True, timeout=600)
-        else:
-            cli.main([command, *argv])
-        torch.cuda.synchronize()
-        times[f"{path} {command}"] = 1e3 * (time.perf_counter() - t0)
-        got = dict(kernels.LAUNCHES)
-        if got != dict(none, **want):
-            raise AssertionError(f"{path} {command}: launches {got}, want "
-                                 f"{dict(none, **want)}")
+        got = run_command(torch, kernels, times, path, command, argv, want,
+                          own_process)
         if path in launches:
             launches[path][command] = got
 
@@ -1404,6 +1440,206 @@ def cli_commands(torch, np, kernels, smi, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the other grid encodings
+# ---------------------------------------------------------------------------
+
+# foreground points of one training step: B=4 x R=512 x (64 + 4 x 16)
+STEP_POINTS = 4 * 512 * 128
+TRIPLANE_ROWS, TRILINE_ROWS = 3 * 2048 ** 2, 3 * 2048
+HASH_ROWS = 476_672  # the voxel_hash preset's (n_params / D, D) view
+# preset -> (grid type, the scatters (B1) of one training step as
+# (updates, D, rows), largest first).  Every gather of a query or of its
+# TV map is one scatter: lanczos_voxel's 64-tap main and perturbed queries
+# and its 4-corner TV; triplaneline's triplane (12 taps) and triline (6)
+# queries at x_fg and x_ptb and its TV maps (9 and 6 corners);
+# voxel_hash's 8 corners x 16 levels twice and its TV (4 x 16).
+ENCODINGS = {
+    "custom": ("lanczos_voxel",
+               [(64 * STEP_POINTS, 4, 512 ** 3)] * 2
+               + [(4 * STEP_POINTS, 4, 512 ** 3)]),
+    "triplaneline": ("triplaneline",
+                     [(12 * STEP_POINTS, 8, TRIPLANE_ROWS)] * 2
+                     + [(9 * STEP_POINTS, 8, TRIPLANE_ROWS)]
+                     + [(6 * STEP_POINTS, 8, TRILINE_ROWS)] * 3),
+    "voxel_hash": ("voxel_hash",
+                   [(128 * STEP_POINTS, 4, HASH_ROWS)] * 2
+                   + [(64 * STEP_POINTS, 4, HASH_ROWS)]),
+}
+
+
+def encoding_scatters(torch, kernels, scatter, preset, card_name):
+    """The preset's training path on the in-memory sphere: every scatter
+    of one real step, each against its float64 plain sums, repeated
+    bitwise, timed beside ``index_add_`` and its bound; then two epochs of
+    4 steps (the second timed), with their launches and peak memory, and
+    one more under the profiler.
+    Returns (scatter records, ms per step, peak bytes)."""
+    from ndjir_torch.train.trainer import loss_and_grads
+
+    grid_type, want = ENCODINGS[preset]
+    trainer = make_trainer(torch, tag=f"monitor_{preset}", config=preset)
+    if trainer.conf.geometric_network.voxel.type != grid_type:
+        raise AssertionError(f"{preset}: grid type "
+                             f"{trainer.conf.geometric_network.voxel.type}")
+    kept, real = [], scatter.scatter_add_rows
+
+    def keep(ids, vals, num_rows):
+        kept.append((ids.clone(), vals.clone(), num_rows))
+        return real(ids, vals, num_rows)
+    scatter.scatter_add_rows = keep
+    try:
+        loss_and_grads(trainer.params, *trainer.next_batch(), 0.0, 1.0,
+                       trainer.conf, cdfs=trainer.cdfs)
+    finally:
+        scatter.scatter_add_rows = real
+    shapes = sorted(((ids.numel(), v.shape[1], n) for ids, v, n in kept),
+                    reverse=True)
+    if shapes != want:
+        raise AssertionError(f"{preset}: one step's scatters {shapes}, want "
+                             f"{want}")
+    records = []
+    for i, (ids, vals, rows) in enumerate(kept):
+        counts = torch.unique(ids, return_counts=True)[1]
+        r = scatter_timings(torch, scatter, f"{preset}-{i}", ids, vals, rows,
+                            False, card_name)
+        records.append(dict(
+            preset=preset, grid=grid_type, launch=i, n=ids.numel(),
+            d=vals.shape[1], rows=rows, distinct_rows=counts.numel(),
+            max_updates_per_row=counts.max().item(),
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "kernel_ms",
+                                 "sort_ms")}))
+    del kept
+    torch.cuda.empty_cache()
+
+    iters = trainer.ds.iters_per_epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer.train(stop_epoch=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(stop_epoch=2)
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated()
+    got = dict(kernels.LAUNCHES)
+    launches = dict(dict.fromkeys(kernels.SOURCES, 0),
+                    scatter_add_rows=len(want) * 2 * iters)
+    if got != launches:
+        raise AssertionError(f"{preset}: launches {got}, want {launches}")
+    losses = [m["loss"] for m in trainer.history]
+    if len(losses) != 2 * iters or not all(
+            math.isfinite(v) and m["grads_finite"]
+            for v, m in zip(losses, trainer.history)):
+        raise AssertionError(f"{preset}: losses {losses}")
+    log("encodings", f"{preset} ({grid_type}): {2 * iters} steps, finite "
+        f"losses {' '.join(f'{v:.6g}' for v in losses)}; launches {got}; "
+        f"epoch 1 {ms_step:.1f} ms/step (host clock, synchronized); peak "
+        f"memory allocated {peak} B ({peak / 2 ** 30:.2f} GiB) on "
+        f"{card_name}")
+    profile_phase(torch, trainer, f"profile_{preset}.txt")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records, ms_step, peak
+
+
+def encoding_phase(torch, np, kernels, scatter, card_name, smi):
+    """Phase 10 (see :func:`encoding_commands`), whose large files are
+    deleted whether it passes or fails."""
+    root = os.path.join(OUT_DIR, "encodings")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return encoding_commands(torch, np, kernels, scatter, card_name,
+                                 smi, root)
+    finally:
+        log("encodings", f"{remove_large(root)} B of meshes and checkpoints "
+            "deleted")
+
+
+def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
+    """The presets of the other grid encodings at their published widths:
+    per preset, the B1 checks and timings at one real step's shapes and two
+    in-memory epochs and a profiled one (:func:`encoding_scatters`); the
+    loss, every gradient leaf, a rendered view and an SDF volume on the
+    card against the CPU at f32 (B=2, R=4, the preset's own tables); then
+    ``cli train`` of one
+    epoch of 4 steps on a 16-view folder, with its exact B1 launches and
+    finite losses.  Last ``cli render`` of 2 views and ``cli extract`` at
+    256^3 of triplaneline, which launch no kernel: no backward, and no
+    octa table for these leaves.  Returns (scatter records, launches by
+    command per preset path)."""
+    from ndjir_torch import cli
+
+    records, launches, summary = [], {}, []
+    for preset in ENCODINGS:
+        t0 = time.perf_counter()
+        recs, ms_step, peak = encoding_scatters(torch, kernels, scatter,
+                                                preset, card_name)
+        records += recs
+        parity_phase(torch, np, f"{preset} f32", config=preset, base=(),
+                     spec=PARITY["f32"])
+        render_parity_phase(torch, np, f"{preset} f32", config=preset,
+                            base=(), spec=RENDER_PARITY["f32"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary.append(f"{preset} {ms_step:.1f} ms/step, peak "
+                       f"{peak / 2 ** 30:.2f} GiB")
+        log("encodings", f"{preset}: kernels, training and parity in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    times = {}
+
+    def run(path, command, argv, want):
+        launches.setdefault(path, {})[command] = run_command(
+            torch, kernels, times, path, command, argv, want)
+
+    scene = os.path.join(root, "scene", "scan1")
+    two = os.path.join(root, "two_views", "scan1")
+    cli.main(["make-synthetic", scene, str(CLI_VIEWS), str(CLI_RES),
+              str(CLI_RES)])
+    cli.main(["make-synthetic", two, "2", str(CLI_RES), str(CLI_RES)])
+    for preset, (_, per_step) in ENCODINGS.items():
+        mon = os.path.join(root, preset)
+        path = f"cli_{preset}"
+        base = ["--config-name", preset, f"monitor_base_path={mon}"]
+        run(path, "train", base + [f"data_path={scene}", "train.epoch=1",
+                                   "valid.skip=true"],
+            {"scatter_add_rows": 4 * len(per_step)})
+        losses = read_series(os.path.join(f"{mon}_scan1",
+                                          "Training-loss.series.txt"))
+        if len(losses) != 4:
+            raise AssertionError(f"{path}: {len(losses)} losses, want 4")
+        log("encodings", f"{path} train (4 steps): "
+            f"{times[f'{path} train']:.1f} ms, losses {losses}")
+        if preset != "triplaneline":
+            remove_large(f"{mon}_scan1")
+            continue
+        ck = os.path.join(f"{mon}_scan1", "checkpoints")
+        run(path, "render", base + [
+            f"data_path={two}", f"monitor_base_path={mon}_two",
+            f"model_load_path={ck}"], {})
+        rendered = os.listdir(os.path.join(f"{mon}_two_scan1", "rendered"))
+        if len(rendered) != 4:
+            raise AssertionError(f"{path} render: {len(rendered)} PNGs, "
+                                 "want 4")
+        run(path, "extract", base + [f"data_path={scene}",
+                                     f"model_load_path={ck}", *CLI_EXTRACT],
+            {})
+        n_bytes, n_verts, _ = check_meshes(
+            f"{path} extract", f"{mon}_scan1", f"mesh_{CLI_GRID}grid_raw")
+        log("encodings", f"{path} render of 2 views "
+            f"{times[f'{path} render']:.1f} ms; extract at {CLI_GRID}^3 "
+            f"{times[f'{path} extract']:.1f} ms ({n_verts} vertices, "
+            f"{n_bytes} B of raw OBJ); no kernel launched")
+    log("encodings", "per preset (" + smi + "): " + "; ".join(summary))
+    log("encodings", "per command (host clock, synchronized): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in times.items()))
+    return records, launches
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1537,6 +1773,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_launches = cli_phase(torch, np, kernels, smi)
     log("cli", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    scatter_record["at_encoding_shapes"], enc_launches = encoding_phase(
+        torch, np, kernels, scatter, card_name, smi)
+    cli_launches.update(enc_launches)
+    log("encodings", f"done in {time.perf_counter() - t0:.1f} s")
 
     # main-path launches: the training steps' and the render, validation
     # and extraction calls', then each command's of the command line

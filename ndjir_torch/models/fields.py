@@ -11,7 +11,7 @@ affine weights, so params convert 1:1 from the reference
 with f32 products and sums, the bias added in f32 and one rounding to the
 stored dtype: bf16 for hidden activations, f32 for each network's last
 layer (reference fields.py:52-72).  ``precision.grid_dtype=bfloat16`` keeps
-the voxel table in bf16; everything else stays f32.
+the grid's tables in bf16; everything else stays f32.
 """
 
 from __future__ import annotations
@@ -65,9 +65,11 @@ def _compute_dtype(conf) -> Optional[torch.dtype]:
 
 
 def param_dtype(path, conf) -> torch.dtype:
-    """The dtype :func:`init_model` gives the leaf at key ``path``: the
-    voxel table in ``precision.grid_dtype``, every other leaf f32."""
-    if tuple(path) == ("geometric-network", "grid", "F"):
+    """The dtype :func:`init_model` gives the leaf at key ``path``: every
+    leaf of the geometric grid (``F``, ``plane_F``, ``line_F``) in
+    ``precision.grid_dtype``, every other leaf f32 (reference
+    fields.py:199-205)."""
+    if tuple(path[:2]) == ("geometric-network", "grid"):
         return _precision(conf, "grid_dtype")
     return torch.float32
 
@@ -235,7 +237,7 @@ def init_geometric(gen, conf, device="cuda") -> Params:
     params: Params = {}
     if enc.out_dim > 0:
         params["grid"] = enc.init(
-            gen, dtype=param_dtype(("geometric-network", "grid", "F"), conf),
+            gen, dtype=param_dtype(("geometric-network", "grid"), conf),
             device=device)
 
     zeros = lambda n: torch.zeros((n,), device=device)  # noqa: E731

@@ -1,11 +1,20 @@
-"""Dense voxel grid feature encoding, twice-differentiable in the query point.
+"""Grid feature encodings, twice-differentiable in the query point.
 
-Counterpart of ``ndjir_tpu/ops/grid.py``, dense-voxel branches over a
-(G, G, G, D) table (reference voxel_feature.py:160):
+Counterpart of ``ndjir_tpu/ops/grid.py``.  Layouts (reference parity):
 
-- 8-corner: each point reads the 8 corners of its cell through
-  :class:`~ndjir_torch.ops.scatter.GatherRows`, whose backward is the
-  scatter kernel (B1).  Every f32 table takes it.
+  dense voxel : (G, G, G, D)                  voxel_feature.py:160
+  triplane    : (3, G, G, D), planes xy, yz, zx
+  triline     : (3, G, D), lines x, y, z
+  voxel hash  : flat (n_params,), per-level offsets aligned by the
+                reference's ``_force_align`` quirk; output channel d*L + l
+
+Every query gathers its table rows through
+:class:`~ndjir_torch.ops.scatter.GatherRows`, ONE call per query (all
+corners, taps and hash levels batched), so its backward is one launch of
+the scatter kernel (B1).  The dense voxel has two more branches:
+
+- 8-corner: each point reads the 8 corners of its cell.  Every f32 table
+  takes it.
 - octa: a bf16 table whose 8-corner-packed rows would take at most
   1.2 GB (:func:`use_octa_layout`, the JAX package's rule) reads one 8D-wide
   row per point through :class:`GatherRowsOcta`, whose backward is B1 in
@@ -23,8 +32,11 @@ the 8-corner numbers; the port does not have them.
 Interpolation weights:
   linear : w0 = x1 - x                        (voxel_feature_cuda.cu)
   cosine : w0 = 0.5 cos(pi (x - x0)) + 0.5    (cosine_voxel_feature_cuda.cu:65)
+  lanczos: sinc(x) sinc(x / 2), 4 taps per axis, taps clamped to the table
+           and their coefficients taken at the clamped position, with NO
+           window cutoff or renormalisation (lanczos_voxel_feature_cuda.cu)
 The gradient with respect to the query point flows through the weights only
-(corner ids are integer), so ∇ₓ and its grad-of-grad are ordinary autograd.
+(row ids are integer), so ∇ₓ and its grad-of-grad are ordinary autograd.
 """
 
 from __future__ import annotations
@@ -307,37 +319,406 @@ def init_voxel(generator: torch.Generator, G: int, D: int, eps: float = 1e-3,
                              device=device)
 
 
+# ---------------------------------------------------------------------------
+# the other encodings: one batched gather per query
+# ---------------------------------------------------------------------------
+
+def _gather_weighted_sum(flat: torch.Tensor, idx_list, w_list
+                         ) -> torch.Tensor:
+    """sum_c w_c * flat[idx_c] through ONE :func:`gather_rows` call, so the
+    backward is one scatter for every corner or tap (reference
+    grid.py:51)."""
+    C = len(idx_list)
+    idx = torch.stack(idx_list, dim=0)
+    w = torch.stack(w_list, dim=0)
+    f = gather_rows(flat, idx.reshape(C, -1))
+    f = f.reshape(*idx.shape, flat.shape[-1])
+    return torch.sum(w[..., None] * f, dim=0)
+
+
+def _vec(v, x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def _grid_coords(x: torch.Tensor, G: int, vmin: Vec3, vmax: Vec3):
+    """(continuous coords in [0, G-1] (..., 3), G-1 per axis (3,)) for a
+    G-wide table on every axis."""
+    g1 = _vec([G - 1] * 3, x)
+    return _to_grid(x, g1, _vec(vmin, x), _vec(vmax, x)), g1
+
+
+def _sinc(x: torch.Tensor) -> torch.Tensor:
+    """sin(pi x) / (pi x).  Near 0 the quotient's derivative cancels (two
+    terms of ~1/(pi x) whose difference is ~(pi x)/3), so there, for
+    |pi x| < 0.1, the Maclaurin polynomial to (pi x)^6 stands in for it:
+    the same value to 3e-14 relative, and derivatives that autograd takes
+    without the cancellation.  ``torch.sinc`` and ``jnp.sinc`` both take
+    the quotient's derivative: in f32, at a point 4e-5 from a node, a
+    Lanczos triline query's d x then parts from its f64 value by up to
+    3e-4 of its largest entry."""
+    y = math.pi * x
+    y2 = y * y
+    small = y.abs() < 0.1
+    safe = torch.where(small, torch.ones_like(y), y)
+    poly = 1.0 - y2 / 6.0 * (1.0 - y2 / 20.0 * (1.0 - y2 / 42.0))
+    return torch.where(small, poly, torch.sin(safe) / safe)
+
+
+def lanczos_window(x: torch.Tensor, a: int = 2) -> torch.Tensor:
+    """sinc(x) * sinc(x / a), with no |x| < a cutoff (reference
+    grid.py:95, csrc/grid_feature/common.cuh:62-69)."""
+    return _sinc(x) * _sinc(x / a)
+
+
+def _lanczos_taps(xyz: torch.Tensor, g1: torch.Tensor, a: int):
+    """Per axis, the 2a tap positions (int64, clamped to the table) and
+    their coefficients, taken at the clamped positions.  ``floor(xyz)`` is
+    not clamped before the offsets (reference grid.py:836)."""
+    xyz0 = torch.floor(xyz).detach()
+    pos, coef = [], []
+    for ax in range(3):
+        ps, cs = [], []
+        for o in range(-a + 1, a + 1):
+            p = torch.minimum(torch.clamp_min(xyz0[..., ax] + o, 0.0),
+                              g1[..., ax])
+            cs.append(lanczos_window(xyz[..., ax] - p, a))
+            ps.append(p.long())
+        pos.append(ps)
+        coef.append(cs)
+    return pos, coef
+
+
+def query_voxel_lanczos(x: torch.Tensor, feature: torch.Tensor,
+                        vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
+                        a: int = 2) -> torch.Tensor:
+    """Lanczos-a dense-grid query, (2a)^3 taps: (..., 3) -> (..., D)
+    (reference grid.py:827)."""
+    Gx, Gy, Gz, D = feature.shape
+    g1 = _vec([Gx - 1, Gy - 1, Gz - 1], x)
+    xyz = _to_grid(x, g1, _vec(vmin, x), _vec(vmax, x))
+    (px, cx), (py, cy), (pz, cz) = zip(*_lanczos_taps(xyz, g1, a))
+    sy, sx = Gz, Gy * Gz
+    idx_list, w_list = [], []
+    for i in range(2 * a):
+        for j in range(2 * a):
+            wij = cx[i] * cy[j]
+            base_ij = px[i] * sx + py[j] * sy
+            for k in range(2 * a):
+                idx_list.append(base_ij + pz[k])
+                w_list.append(wij * cz[k])
+    return _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+
+
+# (xy, yz, zx): common_triplane.cuh:44-66
+_PLANE_AXES = ((0, 1), (1, 2), (2, 0))
+
+
+def init_triplane(generator: torch.Generator, G: int, D: int,
+                  eps: float = 1e-3, dtype=torch.float32, device="cuda"
+                  ) -> torch.Tensor:
+    return eps * torch.randn((3, G, G, D), generator=generator, dtype=dtype,
+                             device=device)
+
+
+def _linear_corners(x, G, vmin, vmax, weight):
+    """Clamped corner ids (int64) and weights, per axis, for a G-wide
+    table: (i0, i1, w0, w1), each (..., 3)."""
+    xyz, g1 = _grid_coords(x, G, vmin, vmax)
+    xyz0, xyz1 = _corners(xyz, g1)
+    w0, w1 = _weights(xyz, xyz0, xyz1, weight)
+    return xyz0.detach().long(), xyz1.detach().long(), w0, w1
+
+
+def query_triplane(x: torch.Tensor, feature: torch.Tensor,
+                   vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
+                   weight: str = "linear") -> torch.Tensor:
+    """Sum of three bilinear plane queries: (..., 3) -> (..., D)
+    (reference grid.py:877); the 12 taps read one (3G^2, D) table."""
+    _, G, _, D = feature.shape
+    i0, i1, w0, w1 = _linear_corners(x, G, vmin, vmax, weight)
+    idx_list, w_list = [], []
+    for p, (au, av) in enumerate(_PLANE_AXES):
+        off = p * G * G
+        for iu, wu in ((i0, w0), (i1, w1)):
+            for iv, wv in ((i0, w0), (i1, w1)):
+                idx_list.append(off + iu[..., au] * G + iv[..., av])
+                w_list.append(wu[..., au] * wv[..., av])
+    return _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+
+
+def query_triplane_lanczos(x: torch.Tensor, feature: torch.Tensor,
+                           vmin: Vec3 = DEFAULT_MIN,
+                           vmax: Vec3 = DEFAULT_MAX, a: int = 2
+                           ) -> torch.Tensor:
+    """Lanczos-a triplane query, (2a)^2 taps a plane (reference
+    grid.py:906)."""
+    _, G, _, D = feature.shape
+    xyz, g1 = _grid_coords(x, G, vmin, vmax)
+    pos, coef = _lanczos_taps(xyz, g1, a)
+    idx_list, w_list = [], []
+    for p, (au, av) in enumerate(_PLANE_AXES):
+        off = p * G * G
+        for i in range(2 * a):
+            for j in range(2 * a):
+                idx_list.append(off + pos[au][i] * G + pos[av][j])
+                w_list.append(coef[au][i] * coef[av][j])
+    return _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+
+
+def init_triline(generator: torch.Generator, G: int, D: int,
+                 eps: float = 1e-3, dtype=torch.float32, device="cuda"
+                 ) -> torch.Tensor:
+    return eps * torch.randn((3, G, D), generator=generator, dtype=dtype,
+                             device=device)
+
+
+def query_triline(x: torch.Tensor, feature: torch.Tensor,
+                  vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
+                  weight: str = "linear") -> torch.Tensor:
+    """Sum of three 1-D line queries: (..., 3) -> (..., D) (reference
+    grid.py:941)."""
+    _, G, D = feature.shape
+    i0, i1, w0, w1 = _linear_corners(x, G, vmin, vmax, weight)
+    idx_list, w_list = [], []
+    for ax in range(3):
+        for i, w in ((i0, w0), (i1, w1)):
+            idx_list.append(ax * G + i[..., ax])
+            w_list.append(w[..., ax])
+    return _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+
+
+def query_triline_lanczos(x: torch.Tensor, feature: torch.Tensor,
+                          vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
+                          a: int = 2) -> torch.Tensor:
+    """Lanczos-a triline query, 2a taps a line (reference grid.py:965)."""
+    _, G, D = feature.shape
+    xyz, g1 = _grid_coords(x, G, vmin, vmax)
+    pos, coef = _lanczos_taps(xyz, g1, a)
+    idx_list, w_list = [], []
+    for ax in range(3):
+        for p, c in zip(pos[ax], coef[ax]):
+            idx_list.append(ax * G + p)
+            w_list.append(c)
+    return _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+
+
+# ---------------------------------------------------------------------------
+# multi-resolution voxel hash
+# ---------------------------------------------------------------------------
+
+# tcnn primes (voxel_hash_feature_cuda.cu:39)
+_HASH_PRIMES = (1, 2654435761, 805459861)
+_U32 = 0xFFFFFFFF
+
+
+def hash_grid_size(G0: int, growth_factor: float, level: int) -> int:
+    return int(G0 * growth_factor ** level)
+
+
+def hash_table_size(G: int, T0: int) -> int:
+    return int(min(float(G) ** 3, float(T0)))
+
+
+def _force_align(size: int, mod: int = 8) -> int:
+    # the reference's quirk, kept so that a reference checkpoint maps 1:1:
+    # it ADDS the remainder instead of padding to a multiple
+    # (common_voxel_hash.cuh:24-28)
+    return size + size % mod
+
+
+def hash_num_params(G0: int, growth_factor: float, T0: int, L: int,
+                    D: int) -> int:
+    return sum(_force_align(hash_table_size(
+        hash_grid_size(G0, growth_factor, l), T0) * D) for l in range(L))
+
+
+def hash_level_offsets(G0: int, growth_factor: float, T0: int, L: int,
+                       D: int) -> Tuple[Tuple[int, int, int], ...]:
+    """Per level, (offset into the flat buffer, G_l, T_l)."""
+    out, off = [], 0
+    for l in range(L):
+        G = hash_grid_size(G0, growth_factor, l)
+        T = hash_table_size(G, T0)
+        out.append((off, G, T))
+        off += _force_align(T * D)
+    return tuple(out)
+
+
+def init_voxel_hash(generator: torch.Generator, G0: int,
+                    growth_factor: float, T0: int, L: int, D: int,
+                    eps: float = 1e-3, dtype=torch.float32, device="cuda"
+                    ) -> torch.Tensor:
+    """Flat N(0, eps) parameter buffer (reference:
+    voxel_hash_feature.py:230-237)."""
+    n = hash_num_params(G0, growth_factor, T0, L, D)
+    return eps * torch.randn((n,), generator=generator, dtype=dtype,
+                             device=device)
+
+
+def _hash_index(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor,
+                T) -> torch.Tensor:
+    """The tcnn spatial hash of corner coords (int64, >= 0) into ``T`` rows
+    (an int, or a tensor that broadcasts, such as one size per level).
+    The reference multiplies in uint32 and wraps mod 2^32; the products
+    here are exact in int64 (coords < 2^31, primes < 2^32) and masked to
+    their low 32 bits, so the ids are the same."""
+    p0, p1, p2 = _HASH_PRIMES
+    h = (ix * p0) & _U32
+    h = h ^ ((iy * p1) & _U32)
+    h = h ^ ((iz * p2) & _U32)
+    return h % T
+
+
+def hash_index(x: torch.Tensor, G: int, T: int, vmin: Vec3 = DEFAULT_MIN,
+               vmax: Vec3 = DEFAULT_MAX) -> torch.Tensor:
+    """Debug op: the 8 hash-table ids of each query's cell corners,
+    (..., 8), corner order x-major (x0y0z0, x0y0z1, ..., x1y1z1; reference
+    grid.py:1041, kernel_hash_index)."""
+    i0, i1, _, _ = _linear_corners(x, G, vmin, vmax, "linear")
+    return torch.stack([_hash_index(cx[..., 0], cy[..., 1], cz[..., 2], T)
+                        for cx in (i0, i1) for cy in (i0, i1)
+                        for cz in (i0, i1)], dim=-1)
+
+
+def _hash_levels(x: torch.Tensor, G0, growth_factor, T0, L, D, vmin, vmax):
+    """Per-level metadata and the continuous coords of every level:
+    (xyz (..., L, 3), G-1 (L, 3), table sizes (L,), first rows (L,)), the
+    sizes and rows as int64 of the (n_params / D, D) view."""
+    levels = hash_level_offsets(G0, growth_factor, T0, L, D)
+    for off, _, _ in levels:
+        assert off % D == 0, "level offset not divisible by feature dim"
+    dev = x.device
+    g1s = torch.tensor([[G - 1] for _, G, _ in levels], dtype=x.dtype,
+                       device=dev)
+    Ts = torch.tensor([T for _, _, T in levels], device=dev)
+    row0s = torch.tensor([off // D for off, _, _ in levels], device=dev)
+    scales = g1s / (_vec(vmax, x) - _vec(vmin, x))          # (L, 3)
+    xyz = (x[..., None, :] - _vec(vmin, x)) * scales        # (..., L, 3)
+    return xyz, g1s.expand(L, 3), Ts, row0s
+
+
+def _levels_to_channels(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., L, D) -> (..., D*L), channel d*L + l (reference
+    grid.py:1131-1132)."""
+    L, D = acc.shape[-2:]
+    return acc.transpose(-1, -2).reshape(*x.shape[:-1], D * L)
+
+
+def query_voxel_hash(x: torch.Tensor, feature: torch.Tensor, G0: int = 16,
+                     growth_factor: float = 1.5, T0: int = 2 ** 15,
+                     L: int = 16, D: int = 2, vmin: Vec3 = DEFAULT_MIN,
+                     vmax: Vec3 = DEFAULT_MAX) -> torch.Tensor:
+    """Multi-resolution hash query: (..., 3) -> (..., D*L), channel
+    d*L + l (reference grid.py:1073).  Vectorized over levels; the 8 x L
+    lookups read the (n_params / D, D) view in ONE gather."""
+    xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
+                                       vmin, vmax)
+    xyz0, xyz1 = _corners(xyz, g1b)
+    w0, w1 = _weights(xyz, xyz0, xyz1, "linear")
+    i0, i1 = xyz0.detach().long(), xyz1.detach().long()
+    idx_list, w_list = [], []
+    for ix, wx in ((i0, w0), (i1, w1)):
+        for iy, wy in ((i0, w0), (i1, w1)):
+            for iz, wz in ((i0, w0), (i1, w1)):
+                idx_list.append(row0s + _hash_index(
+                    ix[..., 0], iy[..., 1], iz[..., 2], Ts))
+                w_list.append(wx[..., 0] * wy[..., 1] * wz[..., 2])
+    acc = _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+    return _levels_to_channels(acc, x)
+
+
+def query_voxel_hash_lanczos(x: torch.Tensor, feature: torch.Tensor,
+                             G0: int = 16, growth_factor: float = 1.5,
+                             T0: int = 2 ** 15, L: int = 16, D: int = 2,
+                             vmin: Vec3 = DEFAULT_MIN,
+                             vmax: Vec3 = DEFAULT_MAX, a: int = 2
+                             ) -> torch.Tensor:
+    """Lanczos-a hash query, (2a)^3 taps a level (reference
+    grid.py:1135)."""
+    xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
+                                       vmin, vmax)
+    pos, coef = _lanczos_taps(xyz, g1b, a)
+    idx_list, w_list = [], []
+    for i in range(2 * a):
+        for j in range(2 * a):
+            wij = coef[0][i] * coef[1][j]
+            for k in range(2 * a):
+                idx_list.append(row0s + _hash_index(
+                    pos[0][i], pos[1][j], pos[2][k], Ts))
+                w_list.append(wij * coef[2][k])
+    acc = _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+    return _levels_to_channels(acc, x)
+
+
+# ---------------------------------------------------------------------------
+# the encoding the networks consume
+# ---------------------------------------------------------------------------
+
+_FAMILIES = ("voxel", "triplane", "triline", "triplaneline")
+_HASH_TYPES = ("voxel_hash", "lanczos_voxel_hash")
+
+
 class GridEncoding:
     """Config-driven grid encoding: init(generator) -> params,
-    apply(params, x) (reference grid.py:1191).  Ported types: ``none``,
-    ``voxel`` and ``cosine_voxel``."""
+    apply(params, x) (reference grid.py:1191).  Types: ``none``,
+    ``{,cosine_,lanczos_}{voxel,triplane,triline,triplaneline}``,
+    ``voxel_hash`` and ``lanczos_voxel_hash``."""
 
-    PORTED = ("none", "voxel", "cosine_voxel")
+    TYPES = ("none",) + tuple(f"{p}{f}" for p in ("", "cosine_", "lanczos_")
+                              for f in _FAMILIES) + _HASH_TYPES
 
     def __init__(self, conf_voxel, radius: float = 1.0):
         c = conf_voxel
         self.type = c.type
-        if self.type not in self.PORTED:
-            raise NotImplementedError(
-                f"grid type {self.type!r} is not ported yet (ROADMAP A12: "
-                "other encodings); ported: " + ", ".join(self.PORTED))
+        if self.type not in self.TYPES:
+            raise ValueError(f"Unknown grid type: {self.type!r}; the types "
+                             "are " + ", ".join(self.TYPES))
         self.G = int(c.grid_size)
         self.D = int(c.feature_size)
         self.use_ste = bool(c.use_ste)
         self.vmin = (-radius, -radius, -radius)
         self.vmax = (radius, radius, radius)
+        self.hash_G0 = int(c.get("hash_base_grid_size", 16))
+        self.hash_growth = float(c.get("hash_growth_factor", 1.5))
+        self.hash_T0 = int(c.get("hash_table_size", 2 ** 15))
+        self.hash_L = int(c.get("hash_levels", 16))
         self.kind = "cosine" if self.type.startswith("cosine_") else "linear"
+        self.lanczos = self.type.startswith("lanczos_")
+        # the layout: voxel, triplane, triline, triplaneline or voxel_hash
+        self.family = ("voxel_hash" if self.type in _HASH_TYPES
+                       else self.type.split("_")[-1])
 
     @property
     def out_dim(self) -> int:
-        return 0 if self.type == "none" else self.D
+        if self.type == "none":
+            return 0
+        if self.family == "voxel_hash":
+            return self.D * self.hash_L
+        if self.family == "triplaneline":
+            return 2 * self.D
+        return self.D
+
+    @property
+    def hash_args(self):
+        return (self.hash_G0, self.hash_growth, self.hash_T0, self.hash_L,
+                self.D)
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device="cuda"):
+        """The leaves: ``F`` (``plane_F`` and ``line_F`` for
+        triplaneline), N(0, 1e-3) in ``dtype``."""
+        kw = dict(dtype=dtype, device=device)
+        f = self.family
         if self.type == "none":
             return {}
-        return {"F": init_voxel(generator, self.G, self.D, dtype=dtype,
-                                device=device)}
+        if f == "voxel_hash":
+            return {"F": init_voxel_hash(generator, *self.hash_args, **kw)}
+        if f == "triplaneline":
+            return {"plane_F": init_triplane(generator, self.G, self.D, **kw),
+                    "line_F": init_triline(generator, self.G, self.D, **kw)}
+        init = {"triplane": init_triplane, "triline": init_triline,
+                "voxel": init_voxel}[f]
+        return {"F": init(generator, self.G, self.D, **kw)}
 
     def _x(self, x: torch.Tensor) -> torch.Tensor:
         # straight-through: the grid adds no d(feature)/dx to the normal /
@@ -346,13 +727,43 @@ class GridEncoding:
         return x.detach() if self.use_ste else x
 
     def apply_with_tv(self, params, x: torch.Tensor, sym_backward: bool = True):
-        """(features, tv_map) from one shared corner gather."""
-        return query_voxel_and_tv(self._x(x), params["F"], self.vmin,
-                                  self.vmax, self.kind, sym_backward,
-                                  params.get("octa_table"))
+        """(features, tv_map): from one shared corner gather on a dense
+        linear or cosine voxel, else the query and :func:`grid_tv_loss`
+        apart (reference grid.py:1254)."""
+        if self.type in ("voxel", "cosine_voxel"):
+            return query_voxel_and_tv(self._x(x), params["F"], self.vmin,
+                                      self.vmax, self.kind, sym_backward,
+                                      params.get("octa_table"))
+        from ndjir_torch.ops.tv_loss import grid_tv_loss
+
+        return (self.apply(params, x),
+                grid_tv_loss(self, params, x, sym_backward))
 
     def apply(self, params, x: torch.Tensor) -> torch.Tensor:
         if self.type == "none":
             raise ValueError("apply() on type='none'")
-        return query_voxel(self._x(x), params["F"], self.vmin, self.vmax,
-                           self.kind, params.get("octa_table"))
+        x = self._x(x)
+        box = (self.vmin, self.vmax)
+        f = self.family
+        if f == "voxel_hash":
+            fn = query_voxel_hash_lanczos if self.lanczos \
+                else query_voxel_hash
+            return fn(x, params["F"], *self.hash_args, *box)
+        if f == "triplaneline":
+            return torch.cat([self._query("triplane", x, params["plane_F"]),
+                              self._query("triline", x, params["line_F"])],
+                             dim=-1)
+        if f == "voxel" and not self.lanczos:
+            return query_voxel(x, params["F"], *box, self.kind,
+                               params.get("octa_table"))
+        return self._query(f, x, params["F"])
+
+    def _query(self, family: str, x: torch.Tensor, F: torch.Tensor):
+        box = (self.vmin, self.vmax)
+        if self.lanczos:
+            fn = {"voxel": query_voxel_lanczos,
+                  "triplane": query_triplane_lanczos,
+                  "triline": query_triline_lanczos}[family]
+            return fn(x, F, *box)
+        fn = {"triplane": query_triplane, "triline": query_triline}[family]
+        return fn(x, F, *box, self.kind)

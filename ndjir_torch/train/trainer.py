@@ -10,8 +10,7 @@ also scores the mesh's Chamfer distance) on the ``valid`` cadence, saves
 checkpoints on ``train.checkpoint_interval_epochs`` and at the end of the
 schedule, and resumes from the newest checkpoint in its monitor directory.
 Not ported yet, and refused with ``NotImplementedError`` where a config asks
-for them: the other grid encodings (ROADMAP A12), the opt-ins of A13 and
-multi-device sharding (A14).
+for them: the opt-ins of ROADMAP A13 and multi-device sharding (A14).
 """
 
 from __future__ import annotations
@@ -103,7 +102,7 @@ def _is_dtu_data(data_path: str) -> bool:
 
 def check_supported(conf) -> None:
     """Refuse, before any work, what the port does not run yet."""
-    GridEncoding(conf.geometric_network.voxel)  # raises for A12's encodings
+    GridEncoding(conf.geometric_network.voxel)  # raises for an unknown type
     if list(conf.parallel.mesh_shape) != [1, 1]:
         raise NotImplementedError(
             "multi-device sharding is not ported yet (ROADMAP A14: "

@@ -110,10 +110,11 @@ def score(params, conf, ds, scene: str, grid: int = 256) -> dict:
 
 
 def make_trainer(work: str, scene_kind: str, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", overrides=()):
     """The benchmark's ``Trainer`` on its scene, ``<work>/scene``, which is
     written first when it is missing; it resumes from the newest
-    checkpoint under ``<work>/run_scene``."""
+    checkpoint under ``<work>/run_scene``.  ``overrides`` (dotted, after
+    the benchmark's own) are for ``scripts/torch_quality_diagnosis.py``."""
     from ndjir_torch.config import load_config
     from ndjir_torch.data.synthetic import (
         make_hard_synthetic_scene,
@@ -143,6 +144,7 @@ def make_trainer(work: str, scene_kind: str, seed: int = 0,
         "valid.skip=true",
         f"train.checkpoint_interval_epochs={CHUNK}",
         "train.keep_checkpoints=2",
+        *overrides,
     ])
     return Trainer(conf, device=device, seed=seed)
 

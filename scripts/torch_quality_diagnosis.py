@@ -3,6 +3,7 @@
 
     python3 scripts/torch_quality_diagnosis.py kernel [--out DIR]
     python3 scripts/torch_quality_diagnosis.py uniforms FILE.npz [--out DIR]
+        [--init CKPT] [--mlp-dtype float32]
 
 Both run the configuration of ``scripts/torch_quality_benchmark.py`` (G=256
 f32 grid, bf16 MLP, mask term, radius 0.75) on its v2 scene, on the card.
@@ -17,7 +18,12 @@ gradient leaf, with f32 MLP operands and with the run's bf16 ones.
 ``uniforms`` trains and scores the v2 benchmark with the Monte-Carlo
 uniforms read from FILE in place of the port's own draw; FILE is what
 ``scripts/jax_mc_uniforms.py`` writes, the JAX package's draw for this
-configuration.  Initial weights stay the port's (seed 0).
+configuration.  Initial weights stay the port's (seed 0) unless
+``--init CKPT`` names a flax-msgpack checkpoint (or its ``.packed`` form)
+whose parameters replace them before the first epoch, which still runs at
+lr=0: ``scripts/jax_init_checkpoint.py`` writes the JAX package's
+``init_model(PRNGKey(0), conf)`` for this configuration.  ``--mlp-dtype
+float32`` runs the MLPs on f32 operands in place of the benchmark's bf16.
 """
 
 from __future__ import annotations
@@ -123,7 +129,28 @@ def kernel(work: str) -> int:
     return 0 if ok else 1
 
 
-def uniforms(path: str, work: str) -> int:
+def load_init(trainer, ckpt: str, work: str) -> None:
+    """Copy the parameters of the checkpoint ``ckpt`` into ``trainer``'s,
+    leaving its optimizer state fresh and its start epoch at 0."""
+    from jax_init_checkpoint import unpack
+
+    from ndjir_torch.train.checkpoint import load_checkpoint
+
+    with open(ckpt, "rb") as f:
+        buf = f.read()
+    if ckpt.endswith(".packed"):
+        # no manifest beside it: the step stays 0
+        ckpt = os.path.join(work, "init.msgpack")
+        with open(ckpt, "wb") as f:
+            f.write(unpack(buf))
+    load_checkpoint(ckpt, trainer.params)
+    grid = trainer.params["geometric-network"]["grid"]["F"]
+    print(f"initial weights from {ckpt}: the grid's mean "
+          f"{grid.double().mean().item():.9g}, std "
+          f"{grid.double().std().item():.9g}", flush=True)
+
+
+def uniforms(path: str, work: str, init=None, mlp_dtype=None) -> int:
     import torch
 
     from ndjir_torch.train import trainer as ttrainer
@@ -145,6 +172,18 @@ def uniforms(path: str, work: str) -> int:
         return cdfs
 
     ttrainer.make_mc_cdfs = jax_draw
+    make_trainer = qb.make_trainer
+
+    def make(work, scene_kind, seed=0, device="cuda", overrides=()):
+        extra = list(overrides)
+        if mlp_dtype:
+            extra.append(f"precision.mlp_dtype={mlp_dtype}")
+        trainer = make_trainer(work, scene_kind, seed, device, extra)
+        if init and trainer.start_epoch == 0:
+            load_init(trainer, init, work)
+        return trainer
+
+    qb.make_trainer = make
     return qb.main(["--scene", "v2", "--out", work])
 
 
@@ -158,6 +197,12 @@ def main(argv=None) -> int:
     u.add_argument("file")
     u.add_argument("--out", default=os.path.join(
         REPO, "chip_smoke_out", "diagnosis_uniforms"))
+    u.add_argument("--init", default=None,
+                   help="flax-msgpack checkpoint (or its .packed form) "
+                   "of the initial weights")
+    u.add_argument("--mlp-dtype", choices=("bfloat16", "float32"),
+                   default=None, help="the MLPs' operand dtype (default: "
+                   "the benchmark's bfloat16)")
     args = parser.parse_args(argv)
 
     import torch
@@ -166,7 +211,8 @@ def main(argv=None) -> int:
         return 1
     if args.cmd == "kernel":
         return kernel(os.path.abspath(args.out))
-    return uniforms(args.file, os.path.abspath(args.out))
+    return uniforms(args.file, os.path.abspath(args.out),
+                    args.init and os.path.abspath(args.init), args.mlp_dtype)
 
 
 if __name__ == "__main__":

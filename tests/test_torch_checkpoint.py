@@ -5,7 +5,8 @@ The port writes ``flax.serialization.to_bytes`` of the JAX package's state
 byte for byte, so each package reads the other's files: held here with the
 same parameter values on both sides (the JAX ``init_model`` tree, bridged)
 and optimizer moments made from a seed, at an f32 grid and at a bf16 grid,
-and with arrays split into chunks (flax's ``MAX_CHUNK_SIZE`` lowered on
+for the dense voxel, triplaneline and voxel-hash leaf layouts, and with
+arrays split into chunks (flax's ``MAX_CHUNK_SIZE`` lowered on
 both sides).  Resuming is bitwise the uninterrupted run on the CPU.
 """
 
@@ -38,7 +39,17 @@ torch.set_num_threads(2)
 
 SMALL = ["geometric_network.voxel.grid_size=16",
          "geometric_network.feature_size=64"]
-RUNS = {"f32": SMALL, "bf16": SMALL + ["precision.grid_dtype=bfloat16"]}
+BF16 = ["precision.grid_dtype=bfloat16"]
+TRIPLANELINE = ["geometric_network.voxel.type=triplaneline",
+                "geometric_network.voxel.feature_size=8"]
+HASH = ["geometric_network.voxel.type=voxel_hash",
+        "geometric_network.voxel.hash_levels=4"]
+# the leaf layouts: a dense voxel F, triplaneline's plane_F and line_F, the
+# voxel hash's flat F; bf16 grids give every grid leaf that dtype
+RUNS = {"f32": SMALL, "bf16": SMALL + BF16,
+        "triplaneline": SMALL + TRIPLANELINE,
+        "triplaneline_bf16": SMALL + TRIPLANELINE + BF16,
+        "voxel_hash_bf16": SMALL + HASH + BF16}
 
 TINY = ["data_path=synthetic/sphere", "geometric_network.voxel.grid_size=16",
         "train.batch_size=2", "train.n_rays=8",

@@ -29,12 +29,14 @@ from ndjir_tpu import cli as jcli
 from ndjir_tpu.config import load_config as jax_load_config
 from ndjir_tpu.data.synthetic import make_synthetic_scene as jax_make_scene
 from ndjir_tpu.extract.native import marching_cubes, sample_surface
+from ndjir_tpu.ops.grid import GridEncoding as JaxGridEncoding
 from ndjir_tpu.render.renderer import make_mc_cdfs as jax_make_mc_cdfs
 from ndjir_tpu.utils.mesh_io import save_obj, save_ply_points
 
 from ndjir_torch import cli
 from ndjir_torch.config import load_config
 from ndjir_torch.models.fields import init_model
+from ndjir_torch.ops.grid import GridEncoding
 from ndjir_torch.render import image as timage
 from ndjir_torch.train import schedules
 from ndjir_torch.train import trainer as ttrainer
@@ -283,5 +285,17 @@ def test_every_preset_is_the_jax_packages(name):
 
 @pytest.mark.parametrize("name", ["custom", "triplaneline", "voxel_hash"])
 def test_presets_of_encodings_not_ported_are_refused(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        check_supported(load_config(name))
+    """The presets of the other encodings (refused until they were ported)
+    are accepted, and their grid's leaves at the published widths have the
+    JAX package's names and shapes (built on the meta device)."""
+    conf = load_config(name)
+    check_supported(conf)
+    jconf = jax_load_config(name)
+    radius = conf.renderer.bounding_sphere_radius
+    enc = GridEncoding(conf.geometric_network.voxel, radius)
+    jenc = JaxGridEncoding(jconf.geometric_network.voxel, radius)
+    assert enc.out_dim == jenc.out_dim
+    got = enc.init(torch.Generator(), device="meta")
+    want = jax.eval_shape(lambda: jenc.init(jax.random.PRNGKey(0)))
+    assert {k: tuple(v.shape) for k, v in got.items()} \
+        == {k: tuple(v.shape) for k, v in want.items()}

@@ -261,10 +261,22 @@ def test_grid_encoding_types():
     conf = load_config("default")
     enc = grid.GridEncoding(conf.geometric_network.voxel)
     assert (enc.type, enc.out_dim, enc.kind) == ("voxel", 4, "linear")
+    # the other encodings are accepted and build the JAX package's leaves
+    # at the default widths (on the meta device)
     for t in ("triplane", "voxel_hash", "lanczos_voxel"):
         c = load_config("default", [f"geometric_network.voxel.type={t}"])
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            grid.GridEncoding(c.geometric_network.voxel)
+        enc = grid.GridEncoding(c.geometric_network.voxel)
+        jenc = jgrid.GridEncoding(jax_load_config(
+            "default", [f"geometric_network.voxel.type={t}"])
+            .geometric_network.voxel)
+        assert (enc.type, enc.out_dim) == (t, jenc.out_dim)
+        got = enc.init(torch.Generator(), device="meta")
+        want = jax.eval_shape(lambda: jenc.init(jax.random.PRNGKey(0)))
+        assert {k: tuple(v.shape) for k, v in got.items()} \
+            == {k: tuple(v.shape) for k, v in want.items()}
+    with pytest.raises(ValueError, match="Unknown grid type"):
+        grid.GridEncoding(load_config("default", [
+            "geometric_network.voxel.type=octree"]).geometric_network.voxel)
 
 
 def test_tv_sqrt_gradient_is_finite_at_zero():

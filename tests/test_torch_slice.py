@@ -243,3 +243,21 @@ def test_native_init_structure_and_statistics(ref):
         last["b"], np.float32(-conf.geometric_network.initial_sphere_radius))
     assert abs(geo["grid"]["F"].std() / 1e-3 - 1) < 0.01
     np.testing.assert_allclose(geo["gain"], [conf.train.sigmoid_gain])
+
+
+def test_native_init_law_matches_per_leaf(ref):
+    """Every leaf of the port's own init against the JAX package's at the
+    default (the quality benchmark's) MLP widths: constant leaves equal,
+    drawn leaves of n entries with the same mean and spread, within five
+    times the sampling noise of two independent draws (mean: std
+    sqrt(2/n); ratio of the standard deviations: sqrt(1/n))."""
+    got = dict(tree_leaves_with_path(params_to_numpy(
+        init_model(ref["conf"], seed=0, device="cpu"))))
+    for path, w in tree_leaves_with_path(ref["params"]):
+        g = got[path]
+        if np.all(w == w.flat[0]):
+            np.testing.assert_array_equal(g, w, err_msg=str(path))
+            continue
+        n = w.size
+        assert abs(g.std() / w.std() - 1) < 5 * np.sqrt(1 / n), path
+        assert abs(g.mean() - w.mean()) < 5 * w.std() * np.sqrt(2 / n), path
