@@ -53,13 +53,16 @@ other grid encodings' presets through training and the command line
 10. encodings -- the presets of the other grid encodings at their
               published widths (``custom``: lanczos_voxel G=512 D=4;
               ``triplaneline`` G=2048 D=8; ``voxel_hash`` 16 levels):
-              every scatter (B1) of one real step against its float64
-              sums, repeated bitwise, timed beside ``index_add_``; two
-              in-memory epochs (ms/step, peak memory, launches); loss,
-              gradients, a rendered view and an SDF volume on the card
-              against the CPU at f32; ``cli train`` of one epoch each with
-              its exact B1 launches; ``cli render`` and ``cli extract`` of
-              triplaneline, which launch no kernel.
+              every scatter (B1) of one real step's ids with random
+              values against its float64 sums, repeated bitwise, timed
+              beside ``index_add_``; three in-memory epochs as in phase 5
+              (ms/step, peak memory, launches); loss, gradients, a
+              rendered view and an SDF volume on the card against the CPU
+              at f32, with the weight rows that read the grid drawn
+              nonzero (the hash's view with them closed); ``cli train``
+              of one epoch each with its exact B1 launches; ``cli
+              render`` and ``cli extract`` of triplaneline, which launch
+              no kernel.
 
 Monitor files, rendered images, environment maps and the full profiles go
 to ``--out`` (default ``chip_smoke_out/``); the meshes, point clouds and
@@ -152,8 +155,9 @@ def check_scatter(torch, scatter, label, ids, vals, num_rows,
     in float64 (so exactly, to f32 precision), with ids outside
     [0, num_rows) left out, as the kernel drops them; the kernel's slab
     pre-pass vs its plain version (``torch.searchsorted``), exactly.
-    Returns the max abs error.  Tolerance: 1e-5 of the largest row sum for
-    f32 outputs (the kernel's f32 sums of up to ~10^5 terms, taken in a
+    Returns the max abs error.  Tolerance: 1e-5 of the largest exact row
+    sum (no floor: all-zero sums must come out exactly zero) for f32
+    outputs (the kernel's f32 sums of up to ~10^5 terms, taken in a
     fixed order, stay well inside it), one bf16 ulp (at most 2^-7 of the
     value) for bf16 outputs.  Both the kernel and the exact sums are
     deterministic, so the check is too."""
@@ -177,7 +181,7 @@ def check_scatter(torch, scatter, label, ids, vals, num_rows,
         raise AssertionError(f"{label}: got {tuple(got.shape)} {got.dtype}, "
                              f"want {tuple(want.shape)} {want_dtype}")
     err = (got.double() - want).abs().max().item() if got.numel() else 0.0
-    scale = max(1.0, want.abs().max().item() if want.numel() else 0.0)
+    scale = want.abs().max().item() if want.numel() else 0.0
     rel = 2.0 ** -7 if want_dtype == torch.bfloat16 else 1e-5
     repeatable = torch.equal(got, again)
     busy = int((starts[1:] != starts[:-1]).sum().item())
@@ -588,10 +592,31 @@ PARITY = {
 G48 = ("geometric_network.voxel.grid_size=48",)
 
 
-def parity_phase(torch, np, label, config="default", base=G48, spec=None):
+def open_grid_rows(torch, params, conf, scale, seed=3):
+    """Draw in place the weight rows that read the grid features (the last
+    rows of layer 0 and of the skip layer, all zero under the geometric
+    init) N(0, (scale * s)^2), s the std of the layer's other rows, so that
+    the grid queries reach the loss, the view and the table's gradient."""
+    from ndjir_torch.ops.grid import GridEncoding
+
+    C = GridEncoding(conf.geometric_network.voxel).out_dim
+    gen = torch.Generator().manual_seed(seed)
+    for name, layer in params["geometric-network"].items():
+        if not name.startswith("affine-") or layer["W"][-C:].any():
+            continue
+        W = layer["W"]
+        s = W[:-C][W[:-C].any(dim=1)].std().item()
+        W[-C:] = scale * s * torch.randn(W[-C:].shape, generator=gen)
+    return params
+
+
+def parity_phase(torch, np, label, config="default", base=G48, spec=None,
+                 grid_rows=0.0):
     """Loss, monitors and every gradient leaf of one small batch (B=2, R=4)
     of ``config`` with ``base`` and the overrides of ``spec`` (default
-    ``PARITY[label]``), on the CPU and on the card."""
+    ``PARITY[label]``), on the CPU and on the card; the weight rows that
+    read the grid drawn at ``grid_rows`` (:func:`open_grid_rows`) if it is
+    not 0."""
     from ndjir_torch.config import load_config
     from ndjir_torch.models.fields import init_model
     from ndjir_torch.render.renderer import make_mc_cdfs
@@ -610,6 +635,8 @@ def parity_phase(torch, np, label, config="default", base=G48, spec=None):
     mask = np.ones((B, R, 1), np.float32)
     batch = [torch.from_numpy(a) for a in (camloc, raydir, color, mask)]
     params = init_model(conf, seed=0, device="cpu")
+    if grid_rows:
+        open_grid_rows(torch, params, conf, grid_rows)
     cdfs = make_mc_cdfs(conf, B, R, device="cpu")
 
     def run(device):
@@ -654,7 +681,7 @@ def parity_phase(torch, np, label, config="default", base=G48, spec=None):
                                  f"{scale})")
     v = conf.geometric_network.voxel
     log("parity", f"{label}, {v.type} G={v.grid_size} D={v.feature_size} "
-        f"B={B} R={R}: loss {loss_g:.7g} on the "
+        f"B={B} R={R}, grid rows at {grid_rows}: loss {loss_g:.7g} on the "
         f"card vs {loss_c:.7g} on CPU (rel {abs(loss_g / loss_c - 1):.3g}, "
         f"tol {loss_rtol}); {len(mons_c)} monitors, worst rel "
         f"{worst_mon:.3g} (tol {mon_rtol}); {len(grads_c)} gradient "
@@ -674,12 +701,13 @@ RENDER_PARITY = {
 
 
 def render_parity_phase(torch, np, label, devices=("cpu", "cuda"),
-                        config="default", base=G48, spec=None):
+                        config="default", base=G48, spec=None, grid_rows=0.0):
     """A 16x16 view (64x64 at valid.n_down_samples=2, one chunk) and a 32^3
     SDF volume from the same parameters (``config`` with ``base`` and the
-    overrides of ``spec``, default ``RENDER_PARITY[label]``) on the CPU and
-    on the card (``devices``).  Both renders draw the same Monte-Carlo
-    uniforms (made on the CPU)."""
+    overrides of ``spec``, default ``RENDER_PARITY[label]``; the grid's
+    weight rows as :func:`parity_phase` draws them) on the CPU and on the
+    card (``devices``).  Both renders draw the same Monte-Carlo uniforms
+    (made on the CPU)."""
     from ndjir_torch.config import load_config
     from ndjir_torch.data.dataset import IDRDataset
     from ndjir_torch.data.synthetic import render_sphere_scene
@@ -694,6 +722,8 @@ def render_parity_phase(torch, np, label, devices=("cpu", "cuda"),
     images, masks, cameras = render_sphere_scene(n_views=2, H=64, W=64)
     ds = IDRDataset(conf, images, masks, cameras, train=False, shuffle=False)
     params = init_model(conf, seed=0, device="cpu")
+    if grid_rows:
+        open_grid_rows(torch, params, conf, grid_rows)
     P = min(conf.valid.n_rays, 16 * 16)
     cdfs = image.make_mc_cdfs(image.chunk_conf(conf), 1, P, device="cpu")
 
@@ -725,7 +755,8 @@ def render_parity_phase(torch, np, label, devices=("cpu", "cuda"),
     if not d <= sdf_tol * scale:
         raise AssertionError(f"{label}: SDF volume differs by {d}")
     v = conf.geometric_network.voxel
-    log("parity", f"render {label}, {v.type} G={v.grid_size}, 16x16 view: "
+    log("parity", f"render {label}, {v.type} G={v.grid_size}, grid rows at "
+        f"{grid_rows}, 16x16 view: "
         f"max |card - CPU| "
         f"{', '.join(diffs)}; 32^3 SDF volume {d:.3g} (tol "
         f"{sdf_tol * scale:.3g})")
@@ -822,8 +853,9 @@ def step_cotangent(torch, trainer):
 
 
 def train_phase(torch, kernels, trainer, card_name, per_step):
-    """Three epochs; ``per_step`` the launches of each kernel one step must
-    make."""
+    """Three epochs, the last at a learning rate above 0; ``per_step`` the
+    launches of each kernel one step must make.  Returns (launches, ms of
+    each epoch, peak bytes allocated)."""
     from ndjir_torch.train import schedules
     from ndjir_torch.train.optim import tree_leaves_with_path
 
@@ -884,7 +916,7 @@ def train_phase(torch, kernels, trainer, card_name, per_step):
         f"R={conf.train.n_rays} {steps} steps: finite losses, launches "
         f"{launches}; peak memory allocated {peak} B "
         f"({peak / 2 ** 30:.2f} GiB) on {card_name}")
-    return launches
+    return launches, epoch_ms, peak
 
 
 def profile_phase(torch, trainer, name):
@@ -1467,13 +1499,27 @@ ENCODINGS = {
                    + [(64 * STEP_POINTS, 4, HASH_ROWS)]),
 }
 
+# the scales at which phase 10's parity checks draw the weight rows that
+# read the grid (:func:`open_grid_rows`): (loss and gradients, view).  The
+# grid's features change sharply from cell to cell (2,048 cells a plane,
+# 7,005 at the hash's finest level), so once the grid reaches the network a
+# sample position's ulp moves the result: on the CPU alone a 1-ulp shift of
+# the camera moves the hash's rendered normal by more than its tolerance
+# at every scale the grid is felt at, so its view is held with the rows
+# closed (scripts/torch_grid_rows_sweep.py measures both on the card and
+# the CPU)
+GRID_ROWS = {"custom": (0.003, 0.01), "triplaneline": (0.1, 0.0003),
+             "voxel_hash": (0.03, 0.0)}
+
 
 def encoding_scatters(torch, kernels, scatter, preset, card_name):
     """The preset's training path on the in-memory sphere: every scatter
-    of one real step, each against its float64 plain sums, repeated
-    bitwise, timed beside ``index_add_`` and its bound; then two epochs of
-    4 steps (the second timed), with their launches and peak memory, and
-    one more under the profiler.
+    of one real step at its own ids, with N(0, 1) values (at
+    initialisation the queries' cotangents are all zero: the weight rows
+    that read the grid start at 0), each against its float64 plain sums,
+    repeated bitwise, timed beside ``index_add_`` and its bound; then
+    three epochs of 4 steps (:func:`train_phase`, the last moving every
+    leaf) and one more under the profiler.
     Returns (scatter records, ms per step, peak bytes)."""
     from ndjir_torch.train.trainer import loss_and_grads
 
@@ -1485,7 +1531,7 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
     kept, real = [], scatter.scatter_add_rows
 
     def keep(ids, vals, num_rows):
-        kept.append((ids.clone(), vals.clone(), num_rows))
+        kept.append((ids.clone(), vals.shape, vals.dtype, num_rows))
         return real(ids, vals, num_rows)
     scatter.scatter_add_rows = keep
     try:
@@ -1493,19 +1539,21 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
                        trainer.conf, cdfs=trainer.cdfs)
     finally:
         scatter.scatter_add_rows = real
-    shapes = sorted(((ids.numel(), v.shape[1], n) for ids, v, n in kept),
-                    reverse=True)
+    shapes = sorted(((ids.numel(), shape[1], n)
+                     for ids, shape, _, n in kept), reverse=True)
     if shapes != want:
         raise AssertionError(f"{preset}: one step's scatters {shapes}, want "
                              f"{want}")
     records = []
-    for i, (ids, vals, rows) in enumerate(kept):
+    for i, (ids, shape, dtype, rows) in enumerate(kept):
         counts = torch.unique(ids, return_counts=True)[1]
+        vals = _rand(torch, 10 + i)[0](*shape, dtype)
         r = scatter_timings(torch, scatter, f"{preset}-{i}", ids, vals, rows,
                             False, card_name)
+        del vals
         records.append(dict(
             preset=preset, grid=grid_type, launch=i, n=ids.numel(),
-            d=vals.shape[1], rows=rows, distinct_rows=counts.numel(),
+            d=shape[1], rows=rows, distinct_rows=counts.numel(),
             max_updates_per_row=counts.max().item(),
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms", "kernel_ms",
@@ -1513,32 +1561,13 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
     del kept
     torch.cuda.empty_cache()
 
-    iters = trainer.ds.iters_per_epoch
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    trainer.train(stop_epoch=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.train(stop_epoch=2)
-    torch.cuda.synchronize()
-    ms_step = 1e3 * (time.perf_counter() - t0) / iters
-    peak = torch.cuda.max_memory_allocated()
-    got = dict(kernels.LAUNCHES)
-    launches = dict(dict.fromkeys(kernels.SOURCES, 0),
-                    scatter_add_rows=len(want) * 2 * iters)
-    if got != launches:
-        raise AssertionError(f"{preset}: launches {got}, want {launches}")
-    losses = [m["loss"] for m in trainer.history]
-    if len(losses) != 2 * iters or not all(
-            math.isfinite(v) and m["grads_finite"]
-            for v, m in zip(losses, trainer.history)):
-        raise AssertionError(f"{preset}: losses {losses}")
-    log("encodings", f"{preset} ({grid_type}): {2 * iters} steps, finite "
-        f"losses {' '.join(f'{v:.6g}' for v in losses)}; launches {got}; "
-        f"epoch 1 {ms_step:.1f} ms/step (host clock, synchronized); peak "
-        f"memory allocated {peak} B ({peak / 2 ** 30:.2f} GiB) on "
-        f"{card_name}")
+    launches, epoch_ms, peak = train_phase(
+        torch, kernels, trainer, card_name,
+        dict(dict.fromkeys(kernels.SOURCES, 0), scatter_add_rows=len(want)))
+    ms_step = epoch_ms[-1] / trainer.ds.iters_per_epoch
+    log("encodings", f"{preset} ({grid_type}): launches {launches}; epoch 2 "
+        f"{ms_step:.1f} ms/step (host clock, synchronized); peak memory "
+        f"allocated {peak} B ({peak / 2 ** 30:.2f} GiB) on {card_name}")
     profile_phase(torch, trainer, f"profile_{preset}.txt")
     del trainer
     gc.collect()
@@ -1561,10 +1590,11 @@ def encoding_phase(torch, np, kernels, scatter, card_name, smi):
 
 def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
     """The presets of the other grid encodings at their published widths:
-    per preset, the B1 checks and timings at one real step's shapes and two
-    in-memory epochs and a profiled one (:func:`encoding_scatters`); the
-    loss, every gradient leaf, a rendered view and an SDF volume on the
-    card against the CPU at f32 (B=2, R=4, the preset's own tables); then
+    per preset, the B1 checks and timings at one real step's shapes and
+    three in-memory epochs and a profiled one (:func:`encoding_scatters`);
+    the loss, every gradient leaf, a rendered view and an SDF volume on the
+    card against the CPU at f32 (B=2, R=4, the preset's own tables, the
+    weight rows that read them drawn at ``GRID_ROWS``); then
     ``cli train`` of one
     epoch of 4 steps on a 16-view folder, with its exact B1 launches and
     finite losses.  Last ``cli render`` of 2 views and ``cli extract`` at
@@ -1579,10 +1609,12 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
         recs, ms_step, peak = encoding_scatters(torch, kernels, scatter,
                                                 preset, card_name)
         records += recs
+        rows, view_rows = GRID_ROWS[preset]
         parity_phase(torch, np, f"{preset} f32", config=preset, base=(),
-                     spec=PARITY["f32"])
+                     spec=PARITY["f32"], grid_rows=rows)
         render_parity_phase(torch, np, f"{preset} f32", config=preset,
-                            base=(), spec=RENDER_PARITY["f32"])
+                            base=(), spec=RENDER_PARITY["f32"],
+                            grid_rows=view_rows)
         gc.collect()
         torch.cuda.empty_cache()
         summary.append(f"{preset} {ms_step:.1f} ms/step, peak "
@@ -1712,7 +1744,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     launches = {"default": train_phase(torch, kernels, trainer, card_name,
-                                       STEP_LAUNCHES["default"])}
+                                       STEP_LAUNCHES["default"])[0]}
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1741,7 +1773,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     launches["g256_bf16"] = train_phase(torch, kernels, trainer, card_name,
-                                        STEP_LAUNCHES["g256_bf16"])
+                                        STEP_LAUNCHES["g256_bf16"])[0]
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -18,10 +18,16 @@ from __future__ import annotations
 
 import torch
 
+from ndjir_torch.ops.lattice import (
+    _PLANE_AXES,
+    _corners,
+    _hash_index,
+    _hash_levels,
+    _levels_to_channels,
+    _to_grid,
+    _vec,
+)
 from ndjir_torch.ops.scatter import gather_rows
-
-# ndjir_torch.ops.grid imports tv_sqrt from here, so this module imports
-# the grid helpers it shares where it calls them
 
 
 class _TVSqrt(torch.autograd.Function):
@@ -60,8 +66,6 @@ def _base(f0: torch.Tensor, sym_backward: bool) -> torch.Tensor:
 def _cell(x: torch.Tensor, g1: torch.Tensor, vmin, vmax):
     """The clamped floor and ceil corner ids (int64, (..., 3) or
     (..., L, 3)) of each point's cell."""
-    from ndjir_torch.ops.grid import _corners, _to_grid, _vec
-
     xyz = _to_grid(x, g1, _vec(vmin, x), _vec(vmax, x))
     xyz0, xyz1 = _corners(xyz, g1)
     return xyz0.detach().long(), xyz1.detach().long()
@@ -70,8 +74,6 @@ def _cell(x: torch.Tensor, g1: torch.Tensor, vmin, vmax):
 def tv_loss_voxel(x: torch.Tensor, feature: torch.Tensor, vmin, vmax,
                   sym_backward: bool = True) -> torch.Tensor:
     """(..., 3), (G, G, G, D) -> (..., D) (reference tv_loss.py:62)."""
-    from ndjir_torch.ops.grid import _vec
-
     Gx, Gy, Gz, D = feature.shape
     i0, i1 = _cell(x, _vec([Gx - 1, Gy - 1, Gz - 1], x), vmin, vmax)
     sy, sx = Gz, Gy * Gz
@@ -88,8 +90,6 @@ def tv_loss_triplane(x: torch.Tensor, feature: torch.Tensor, vmin, vmax,
                      sym_backward: bool = True) -> torch.Tensor:
     """(..., 3), (3, G, G, D) -> (..., 3D), channel 3d + plane (planes xy,
     yz, zx; reference tv_loss.py:88)."""
-    from ndjir_torch.ops.grid import _PLANE_AXES, _vec
-
     _, G, _, D = feature.shape
     i0, i1 = _cell(x, _vec([G - 1] * 3, x), vmin, vmax)
     idx_list = []
@@ -110,8 +110,6 @@ def tv_loss_triline(x: torch.Tensor, feature: torch.Tensor, vmin, vmax,
                     sym_backward: bool = True) -> torch.Tensor:
     """(..., 3), (3, G, D) -> (..., 3D), channel 3d + line (reference
     tv_loss.py:117)."""
-    from ndjir_torch.ops.grid import _vec
-
     _, G, D = feature.shape
     i0, i1 = _cell(x, _vec([G - 1] * 3, x), vmin, vmax)
     idx_list = []
@@ -129,13 +127,6 @@ def tv_loss_voxel_hash(x: torch.Tensor, feature: torch.Tensor, G0: int,
                        ) -> torch.Tensor:
     """(..., 3), (n_params,) -> (..., D*L), channel d*L + l; the four
     corners of every level from one gather (reference tv_loss.py:142)."""
-    from ndjir_torch.ops.grid import (
-        _corners,
-        _hash_index,
-        _hash_levels,
-        _levels_to_channels,
-    )
-
     xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
                                        vmin, vmax)
     xyz0, xyz1 = _corners(xyz, g1b)

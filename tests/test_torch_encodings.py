@@ -24,7 +24,7 @@ from ndjir_tpu.models.fields import init_model as jax_init_model
 from ndjir_torch.bridge import params_to_numpy
 from ndjir_torch.config import load_config
 from ndjir_torch.models.fields import init_model
-from ndjir_torch.ops import grid, tv_loss
+from ndjir_torch.ops import grid, lattice, tv_loss
 from ndjir_torch.ops.encoding import pe_dim
 from ndjir_torch.train.optim import tree_leaves_with_path
 
@@ -234,16 +234,16 @@ def test_hash_index_leveled_matches(G, T):
 def test_hash_sizing(G0, growth, T0, L, D):
     assert grid.hash_num_params(G0, growth, T0, L, D) \
         == jgrid.hash_num_params(G0, growth, T0, L, D)
-    assert grid.hash_level_offsets(G0, growth, T0, L, D) \
+    assert lattice.hash_level_offsets(G0, growth, T0, L, D) \
         == jgrid.hash_level_offsets(G0, growth, T0, L, D)
     for size in (0, 3, 4, 12, 13, 100):
-        assert grid._force_align(size) == jgrid._force_align(size)
+        assert lattice._force_align(size) == jgrid._force_align(size)
 
 
 def test_hash_preset_rows():
     # the voxel_hash preset: 476,672 rows of 4, levels 0 and 1 of 4,096
     # and 13,824 rows (every corner), the rest 2^15
-    levels = grid.hash_level_offsets(16, 1.5, 2 ** 15, 16, 4)
+    levels = lattice.hash_level_offsets(16, 1.5, 2 ** 15, 16, 4)
     assert grid.hash_num_params(16, 1.5, 2 ** 15, 16, 4) == 476_672 * 4
     assert [T for _, _, T in levels[:3]] == [4096, 13824, 32768]
 

@@ -9,6 +9,10 @@ geometric MLP), B=2, R=4.  Both sides
 start from the JAX ``init_model`` parameters (bridged) and the JAX
 ``make_mc_cdfs`` uniforms: the loss and its monitors, every parameter's
 gradient (the eikonal double backward included) and two train steps.
+The geometric init zeroes the weight rows that read the grid features (in
+layer 0 and the skip layer), so at init the queries reach neither the loss
+nor the table's gradient; those rows get random entries on both sides
+(:func:`_open_grid_rows`), so that every query is held here.
 """
 
 import jax
@@ -26,6 +30,7 @@ from ndjir_tpu.train.optim import init_optimizer as jax_init_optimizer
 
 from ndjir_torch.bridge import params_from_numpy, params_to_numpy
 from ndjir_torch.config import load_config
+from ndjir_torch.ops.grid import GridEncoding
 from ndjir_torch.render.loss import total_loss
 from ndjir_torch.train.optim import init_optimizer, tree_leaves_with_path
 from ndjir_torch.train.trainer import train_step
@@ -44,6 +49,18 @@ PRESETS = {
                    "geometric_network.feature_size=128"],
 }
 
+# the scale of the opened grid rows (:func:`_open_grid_rows`) for the
+# gradient test and for the two steps.  The voxel hash's finest level
+# (G=7,005) amplifies a sample position's ulp ~4,700-fold, so where the
+# queries make nearly all of its table gradient a 1-ulp shift of the camera
+# moves the JAX package's own gradient by about that test's tolerance; at
+# 0.003 they make about half of it.  Its first Adam step moves each hash
+# entry by lr * sign(g), and the same shift then moves the JAX package's
+# own second loss by more than 1e-4: its two steps start from the closed
+# rows
+ROW_SCALE = {"custom": (0.1, 0.1), "triplaneline": (0.1, 0.1),
+             "voxel_hash": (0.003, 0.0)}
+
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
@@ -53,6 +70,23 @@ def _leaf(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def _open_grid_rows(params, channels, scale, seed=3):
+    """``params`` with the weight rows that read the ``channels`` grid
+    features (the last rows of layer 0 and of the skip layer, all zero
+    under the geometric init) drawn N(0, (scale * s)^2), s the std of the
+    layer's other rows."""
+    rng = np.random.RandomState(seed)
+    geo = dict(params["geometric-network"])
+    for name, layer in geo.items():
+        if not name.startswith("affine-") or np.any(layer["W"][-channels:]):
+            continue
+        W = np.array(layer["W"])
+        s = W[:-channels][np.any(W[:-channels], axis=1)].std()
+        W[-channels:] = scale * s * rng.randn(channels, W.shape[1])
+        geo[name] = dict(layer, W=W.astype(layer["W"].dtype))
+    return dict(params, **{"geometric-network": geo})
 
 
 @pytest.fixture(scope="module", params=list(PRESETS))
@@ -69,8 +103,12 @@ def ref(request):
     color = rng.rand(B, R, 3).astype(np.float32)
     obj_mask = np.ones((B, R, 1), np.float32)
     batch = (camloc, raydir, color, obj_mask)
-    params = _np(jax.jit(lambda k: jax_init_model(k, jconf))(
+    conf = load_config("tiny_test", overrides=overrides)
+    closed = _np(jax.jit(lambda k: jax_init_model(k, jconf))(
         jax.random.PRNGKey(0)))
+    channels = GridEncoding(conf.geometric_network.voxel).out_dim
+    grad_scale, step_scale = ROW_SCALE[request.param]
+    params = _open_grid_rows(closed, channels, grad_scale)
     cdfs = _np(jax.jit(lambda: jax_make_mc_cdfs(jconf, B, R))())
 
     def lossfn(pp):
@@ -81,11 +119,13 @@ def ref(request):
         p, g, s, jnp.float32(LR_W), jnp.float32(LR_F), jconf))
 
     (loss, mons), grads = vg(params)
-    out = dict(name=request.param,
-               conf=load_config("tiny_test", overrides=overrides),
+    out = dict(name=request.param, conf=conf,
                batch=batch, params=params, cdfs=cdfs, loss=float(loss),
-               mons={k: float(v) for k, v in mons.items()}, grads=_np(grads))
-    p, s, g = params, jax_init_optimizer(params), grads
+               mons={k: float(v) for k, v in mons.items()}, grads=_np(grads),
+               closed_grid_grads=_np(vg(closed)[1]["geometric-network"][
+                   "grid"]))
+    p = out["step_params"] = _open_grid_rows(closed, channels, step_scale)
+    s, g = jax_init_optimizer(p), vg(p)[1]
     for step in range(2):
         p, s, finite = update(p, g, s)
         assert bool(finite)
@@ -96,8 +136,8 @@ def ref(request):
     return out
 
 
-def _torch_inputs(ref):
-    params = params_from_numpy(ref["params"], device="cpu")
+def _torch_inputs(ref, key="params"):
+    params = params_from_numpy(ref[key], device="cpu")
     batch = [torch.from_numpy(a) for a in ref["batch"]]
     cdfs = {k: [torch.from_numpy(u) for u in v] if isinstance(v, list)
             else torch.from_numpy(v) for k, v in ref["cdfs"].items()}
@@ -113,6 +153,11 @@ def test_grid_leaves_are_the_presets(ref):
 
 def test_loss_monitors_and_every_grad_match(ref):
     params, batch, cdfs = _torch_inputs(ref)
+    # the queries reach the table's gradient: with the rows that read the
+    # grid closed, each grid leaf's gradient is its TV term's alone
+    for k, g in ref["grads"]["geometric-network"]["grid"].items():
+        tv_only = ref["closed_grid_grads"][k]
+        assert np.abs(g - tv_only).max() > 0.1 * np.abs(g).max(), k
     leaves = list(tree_leaves_with_path(params))
     for _, p in leaves:
         p.requires_grad_(True)
@@ -135,7 +180,7 @@ def test_loss_monitors_and_every_grad_match(ref):
 
 
 def test_two_train_steps_match(ref):
-    params, batch, cdfs = _torch_inputs(ref)
+    params, batch, cdfs = _torch_inputs(ref, "step_params")
     state = init_optimizer(params)
     mons = [train_step(params, state, *batch, CAR, LVG, LR_W, LR_F,
                        ref["conf"], cdfs=cdfs) for _ in range(2)]
