@@ -153,8 +153,10 @@ def check_scatter(torch, scatter, label, ids, vals, num_rows,
                   transposed=False):
     """Kernel wrapper vs the plain version on the same inputs, accumulated
     in float64 (so exactly, to f32 precision), with ids outside
-    [0, num_rows) left out, as the kernel drops them; the kernel's slab
-    pre-pass vs its plain version (``torch.searchsorted``), exactly.
+    [0, num_rows) left out, as the kernel drops them; the kernel's sort vs
+    the plain stable sort (``torch.sort`` of the same keys), its slab
+    pre-pass vs its plain version (``torch.searchsorted``) and its piece
+    plan vs its plain version, each exactly.
     Returns the max abs error.  Tolerance: 1e-5 of the largest exact row
     sum (no floor: all-zero sums must come out exactly zero) for f32
     outputs (the kernel's f32 sums of up to ~10^5 terms, taken in a
@@ -170,11 +172,25 @@ def check_scatter(torch, scatter, label, ids, vals, num_rows,
                                            acc_dtype=torch.float64)
     if transposed:
         want = want.t()
-    ids32 = scatter.sort_updates(ids)[0]
-    rows = scatter.slab_rows(vals.shape[1])
-    starts = scatter.slab_starts(ids32, num_rows, rows)
-    starts_ok = torch.equal(starts, scatter._slab_starts_plain(
-        ids32, num_rows, rows))
+    bits = 0 if transposed else scatter.bucket_bits(ids.numel(), vals,
+                                                    num_rows)
+    if bits:    # the bucket path: keys by bucket, carrying the rows
+        ids32, moved = scatter.sort_by_bucket(ids, vals, num_rows, bits)
+        plain = scatter._sort_by_bucket_plain(ids, vals, num_rows, bits)
+        rows, piece, cut = 1 << bits, scatter._BUCKET_PIECE, 0
+    else:
+        ids32, moved = scatter.sort_updates(ids, num_rows)
+        plain = scatter._sort_updates_plain(ids, num_rows)
+        rows = scatter.slab_rows(vals.shape[1])
+        piece, cut = scatter.piece_size(vals.shape[1]), None
+    sort_ok = torch.equal(ids32, plain[0]) and torch.equal(moved, plain[1])
+    del plain, moved
+    starts = scatter.slab_starts(ids32, num_rows, rows, bits)
+    plain_starts = scatter._slab_starts_plain(ids32, num_rows, rows, bits)
+    starts_ok = torch.equal(starts, plain_starts)
+    pieces = scatter.piece_plan(ids32, num_rows, rows, piece, cut, bits)
+    plan_ok = torch.equal(pieces, scatter._piece_plan_plain(plain_starts,
+                                                            piece, cut))
     torch.cuda.synchronize()
     want_dtype = torch.float32 if transposed else vals.dtype
     if got.shape != want.shape or got.dtype != want_dtype:
@@ -188,16 +204,19 @@ def check_scatter(torch, scatter, label, ids, vals, num_rows,
     log("kernels", f"scatter_add_rows {label}: N={ids.numel()} "
         f"D={vals.shape[1]} rows={num_rows} max_abs_err={err:.3g} "
         f"(tol {rel * scale:.3g}) bitwise_repeatable={repeatable}; "
-        f"{busy} of {starts.numel() - 1} slabs of {rows} rows take updates, "
-        f"pre-pass equal to searchsorted: {starts_ok}")
+        f"{busy} of {starts.numel() - 1} {'buckets' if bits else 'slabs'} "
+        f"of {rows} rows take updates, "
+        f"{pieces.shape[0]} pieces of {piece} updates; sort, pre-pass and "
+        f"plan equal to their plain versions: {sort_ok}, {starts_ok}, "
+        f"{plan_ok}")
     if not err <= rel * scale:
         raise AssertionError(f"{label}: kernel disagrees with the plain "
                              f"version by {err}")
     if not repeatable:
         raise AssertionError(f"{label}: two runs differ")
-    if not starts_ok:
-        raise AssertionError(f"{label}: the slab pre-pass differs from "
-                             "searchsorted")
+    if not (sort_ok and starts_ok and plan_ok):
+        raise AssertionError(f"{label}: the sort, the slab pre-pass or the "
+                             "piece plan differs from its plain version")
     return err
 
 
@@ -218,9 +237,12 @@ def scatter_edge_cases(torch, scatter):
     """Random ids; 700 updates to one row; no updates at all; updates in one
     slab only; ids outside [0, num_rows) mixed in; num_rows not a multiple
     of the slab; D in {1, 3, 4, 8, 32, 33}; the rows on either side of the
-    kernel's slab edges (256 rows at D=4, 64 at D=32) and of the TPU
-    kernel's (4096); transposed output; bf16 values; a 20,000-update row at
-    D=32, transposed, bf16."""
+    kernel's slab edges (256 rows at D=4, 128 at D=8, 64 at D=32) and of
+    the TPU kernel's (4096); transposed output; bf16 values; a
+    20,000-update row at D=32, transposed, bf16; one D=8 slab cut into 400
+    pieces; one row taking all 300,000 updates at D=8 and D=4; ids outside
+    the table at a 13- and a 19-bit key width; the bucket path at 20,001
+    and 476,672 rows.  Each is repeated bitwise."""
     dev = torch.device("cuda")
     randn, randint = _rand(torch, 0)
     check_scatter(torch, scatter, "random", randint(100_000, 65_536),
@@ -247,8 +269,8 @@ def scatter_edge_cases(torch, scatter):
             check_scatter(torch, scatter, f"d{d}-transposed{int(transposed)}",
                           randint(30_011, 8000), randn(8000, d), 30_011,
                           transposed)
-    edges = torch.tensor([0, 31, 32, 63, 64, 255, 256, 511, 512, 2047, 2048,
-                          4095, 4096, 6143, 6144, 8191],
+    edges = torch.tensor([0, 31, 32, 63, 64, 127, 128, 255, 256, 511, 512,
+                          2047, 2048, 4095, 4096, 6143, 6144, 8191],
                          device=dev).repeat_interleave(40)
     for d in (4, 8, 32):
         for transposed in (False, True):
@@ -267,6 +289,44 @@ def scatter_edge_cases(torch, scatter):
                   hot[torch.randperm(hot.numel(), device=dev)],
                   randn(hot.numel(), 32, torch.bfloat16), 65_536,
                   transposed=True)
+    # one D=8 slab cut into 400 pieces, each built by a warp of its own
+    rows, piece = scatter.slab_rows(8), scatter.piece_size(8)
+    split = 3 * rows + randint(rows, 400 * piece)
+    check_scatter(torch, scatter, "one-slab-400-pieces-d8", split,
+                  randn(split.numel(), 8), 10 * rows)
+    # a single row takes every update: one run through every piece, summed
+    # by the fix-up
+    for d in (8, 4):
+        one = torch.full((300_000,), 777, device=dev)
+        check_scatter(torch, scatter, f"one-row-all-updates-d{d}", one,
+                      randn(one.numel(), d), 6144)
+    # ids outside the table at a 13- and a 19-bit key width, whose low bits
+    # alias the rows the real ids take
+    for num_rows in (6144, 476_672):
+        bits = num_rows.bit_length()
+        near = torch.cat([num_rows - 1 - randint(100, 40_000),
+                          -1 - randint(2 ** 20, 5000),
+                          num_rows + randint(2 ** 20, 5000),
+                          (1 << bits) + num_rows - 1 - randint(100, 5000)])
+        near = near[torch.randperm(near.numel(), device=dev)]
+        for d in (4, 8):
+            check_scatter(torch, scatter,
+                          f"ids-outside-{bits}-bit-keys-d{d}", near,
+                          randn(near.numel(), d), num_rows)
+    # the bucket path (f32 at D=4, 8 or more updates a row): buckets of 128
+    # and 2,048 rows, a row taking more updates than a piece, ids outside
+    # whose low bits alias real rows, a table not a whole number of buckets
+    for num_rows, n in ((20_001, 200_000), (476_672, 4_000_000)):
+        ids = torch.cat([randint(num_rows, n),
+                         torch.full((40_000,), num_rows // 3, device=dev),
+                         -1 - randint(2 ** 20, 5000),
+                         num_rows + randint(2 ** 20, 5000)])
+        ids = ids[torch.randperm(ids.numel(), device=dev)]
+        vals = randn(ids.numel(), 4)
+        if not scatter.bucket_bits(ids.numel(), vals, num_rows):
+            raise AssertionError(f"{num_rows} rows: no bucket path")
+        check_scatter(torch, scatter, f"bucket-path-{num_rows}-rows", ids,
+                      vals, num_rows)
 
 
 def profile_once(torch, label, fn):
@@ -308,16 +368,29 @@ def scatter_timings(torch, scatter, label, ids, vals, num_rows, transposed,
         else scatter.scatter_add_rows
     wrapper_profile = profile_once(torch, f"scatter_add_rows {label}",
                                    lambda: fn(ids, vals, num_rows))
-    ids32, perm = scatter.sort_updates(ids)
+    bits = 0 if transposed else scatter.bucket_bits(n, vals, num_rows)
+    if bits:
+        def sort():
+            return scatter.sort_by_bucket(ids, vals, num_rows, bits)
+
+        def kernel():
+            return scatter._launch_buckets(keys, moved, num_rows, bits)
+        keys, moved = sort()
+    else:
+        def sort():
+            return scatter.sort_updates(ids, num_rows)
+
+        def kernel():
+            return scatter._launch(keys, perm, vals, num_rows, transposed)
+        keys, perm = sort()
     ids64, vals32 = ids.long(), vals.float()
 
     def plain():
         out = scatter._scatter_add_rows_plain(ids, vals, num_rows)
         return out.t().contiguous() if transposed else out
     ms = cuda_ms(torch, lambda: fn(ids, vals, num_rows))
-    sort_ms = cuda_ms(torch, lambda: scatter.sort_updates(ids))
-    kernel_ms = cuda_ms(torch, lambda: scatter._launch(ids32, perm, vals,
-                                                       num_rows, transposed))
+    sort_ms = cuda_ms(torch, sort)
+    kernel_ms = cuda_ms(torch, kernel)
     plain_ms = cuda_ms(torch, plain)
     library_ms = cuda_ms(torch, lambda: torch.zeros(
         num_rows, d, device=dev).index_add_(0, ids64, vals32))
@@ -331,7 +404,8 @@ def scatter_timings(torch, scatter, label, ids, vals, num_rows, transposed,
     log("kernels", f"{label} step ids: {counts.numel()} distinct rows, the "
         f"most updated takes {counts.max().item()} of {n} updates")
     log("kernels", f"scatter_add_rows {label}: N={n} D={d} {vals.dtype} "
-        f"transposed={transposed}: {ms:.4f} ms (sort {sort_ms:.4f} + kernel "
+        f"transposed={transposed}, {'bucket' if bits else 'sorted'} path: "
+        f"{ms:.4f} ms (sort {sort_ms:.4f} + kernel "
         f"{kernel_ms:.4f}), plain {plain_ms:.4f} ms, index_add_ "
         f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"({n_bytes} B at {mem_rate:.3g} B/s)")
@@ -339,6 +413,7 @@ def scatter_timings(torch, scatter, label, ids, vals, num_rows, transposed,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms, kernel_ms=kernel_ms, sort_ms=sort_ms,
+                path="bucket" if bits else "sorted",
                 wrapper_profile=wrapper_profile)
 
 
@@ -952,8 +1027,14 @@ def profile_phase(torch, trainer, name):
         f"{wall_us / 1e3 / steps:.1f} ms/step, device busy "
         f"{busy_us / 1e3 / steps:.1f} ms/step ({100 * busy_us / wall_us:.1f}"
         f"% of the wall time, idle {100 - 100 * busy_us / wall_us:.1f}%)")
-    groups = (("scatter kernel", ("scatter_add_rows_kernel",
-                                  "scatter_slab_starts_kernel")),
+    groups = (("scatter kernel", ("scatter_keys_kernel",
+                                  "scatter_slab_starts_kernel",
+                                  "scatter_slab_search_kernel",
+                                  "scatter_plan_kernel",
+                                  "scatter_add_rows_kernel",
+                                  "scatter_fixup_kernel",
+                                  "scatter_bucket_kernel",
+                                  "scatter_bucket_combine_kernel")),
               ("fold kernel", ("fold_octa_cotangent_kernel",)),
               ("matmul", ("gemm", "Gemm")),
               ("sort", ("Sort", "sort")),
@@ -1512,22 +1593,11 @@ GRID_ROWS = {"custom": (0.003, 0.01), "triplaneline": (0.1, 0.0003),
              "voxel_hash": (0.03, 0.0)}
 
 
-def encoding_scatters(torch, kernels, scatter, preset, card_name):
-    """The preset's training path on the in-memory sphere: every scatter
-    of one real step at its own ids, with N(0, 1) values (at
-    initialisation the queries' cotangents are all zero: the weight rows
-    that read the grid start at 0), each against its float64 plain sums,
-    repeated bitwise, timed beside ``index_add_`` and its bound; then
-    three epochs of 4 steps (:func:`train_phase`, the last moving every
-    leaf) and one more under the profiler.
-    Returns (scatter records, ms per step, peak bytes)."""
+def step_scatters(torch, scatter, trainer):
+    """Every scatter (B1) of one real training step of ``trainer``, as
+    (ids, values' shape, values' dtype, rows), in launch order."""
     from ndjir_torch.train.trainer import loss_and_grads
 
-    grid_type, want = ENCODINGS[preset]
-    trainer = make_trainer(torch, tag=f"monitor_{preset}", config=preset)
-    if trainer.conf.geometric_network.voxel.type != grid_type:
-        raise AssertionError(f"{preset}: grid type "
-                             f"{trainer.conf.geometric_network.voxel.type}")
     kept, real = [], scatter.scatter_add_rows
 
     def keep(ids, vals, num_rows):
@@ -1539,6 +1609,24 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
                        trainer.conf, cdfs=trainer.cdfs)
     finally:
         scatter.scatter_add_rows = real
+    return kept
+
+
+def encoding_scatters(torch, kernels, scatter, preset, card_name):
+    """The preset's training path on the in-memory sphere: every scatter
+    of one real step at its own ids, with N(0, 1) values (at
+    initialisation the queries' cotangents are all zero: the weight rows
+    that read the grid start at 0), each against its float64 plain sums,
+    repeated bitwise, timed beside ``index_add_`` and its bound; then
+    three epochs of 4 steps (:func:`train_phase`, the last moving every
+    leaf) and one more under the profiler.
+    Returns (scatter records, ms per step, peak bytes)."""
+    grid_type, want = ENCODINGS[preset]
+    trainer = make_trainer(torch, tag=f"monitor_{preset}", config=preset)
+    if trainer.conf.geometric_network.voxel.type != grid_type:
+        raise AssertionError(f"{preset}: grid type "
+                             f"{trainer.conf.geometric_network.voxel.type}")
+    kept = step_scatters(torch, scatter, trainer)
     shapes = sorted(((ids.numel(), shape[1], n)
                      for ids, shape, _, n in kept), reverse=True)
     if shapes != want:
@@ -1557,7 +1645,7 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
             max_updates_per_row=counts.max().item(),
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms", "kernel_ms",
-                                 "sort_ms")}))
+                                 "sort_ms", "path")}))
     del kept
     torch.cuda.empty_cache()
 

@@ -41,15 +41,28 @@ def _inputs(case, d, device):
         ids = rng.randint(0, M, 3000)
     elif case == "hot_row":     # a run far longer than a block has threads
         ids = np.concatenate([np.full(20_000, 4095), rng.randint(0, M, 300)])
+    elif case == "heavy_slabs":  # like the triline gathers: every slab cut
+        ids = rng.permutation(np.concatenate(
+            [np.full(30_000, 300), rng.randint(0, 600, 40_000)]))
+    elif case == "updates_over_rows":  # like the hash
+        ids = rng.randint(0, 48, 60_000) * 170 + 7
+    elif case == "outside_narrow":  # ids outside, aliasing the last rows
+        ids = rng.permutation(np.concatenate([
+            rng.randint(M - 300, M, 20_000), rng.randint(M, M + 300, 5000),
+            rng.randint(-300, 0, 5000), np.full(50, -2 ** 31),
+            np.full(50, 2 ** 31 - 1)]))
     else:                       # rows either side of the kernel's slabs
-        ids = np.repeat([0, 31, 32, 63, 64, 255, 256, 4095, 4096, 8191], 25)
+        ids = np.repeat([0, 31, 32, 63, 64, 127, 128, 255, 256, 4095, 4096,
+                         8191], 25)
     vals = rng.randn(len(ids), d).astype(np.float32)
     return (torch.from_numpy(ids).to(device),
             torch.from_numpy(vals).to(device))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "hot_row", "slab_edges"])
+@pytest.mark.parametrize("case", ["random", "hot_row", "slab_edges",
+                                  "heavy_slabs", "updates_over_rows",
+                                  "outside_narrow"])
 @pytest.mark.parametrize("d", [4, 8, 32])
 def test_scatter_kernel_matches_plain_version(cuda, case, d):
     ids, vals = _inputs(case, d, cuda)
@@ -86,13 +99,30 @@ def _edge_inputs(case, rng):
         ids = np.concatenate([np.full(20_000, 4095),
                               rng.randint(0, 65_536, 5000)])
         return rng.permutation(ids), 65_536, 32, True, torch.bfloat16
+    if case == "split_slab_d8":             # one slab over many pieces
+        rows = scatter.slab_rows(8)
+        return 3 * rows + rng.randint(0, rows, 200 * scatter.piece_size(8)), \
+            10 * rows, 8, False, torch.float32
+    if case.startswith("one_row_d"):        # every update to one row
+        return np.full(100_000, 777), 6144, int(case[9:]), False, \
+            torch.float32
+    if case.startswith("outside_bits"):     # a 13- or 19-bit key range
+        narrow = case.endswith("13")
+        num_rows = 6144 if narrow else 476_672
+        ids = np.concatenate([rng.randint(num_rows - 100, num_rows, 8000),
+                              rng.randint(-2000, 0, 2000),
+                              num_rows + rng.randint(0, 1 << 20, 2000)])
+        return rng.permutation(ids), num_rows, 8 if narrow else 4, narrow, \
+            torch.bfloat16 if narrow else torch.float32
     raise ValueError(case)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["no_updates", "one_busy_slab",
                                   "ids_outside", "ragged_d1", "ragged_d3",
-                                  "ragged_d33", "hot_row_d32_bf16"])
+                                  "ragged_d33", "hot_row_d32_bf16",
+                                  "split_slab_d8", "one_row_d8", "one_row_d4",
+                                  "outside_bits13", "outside_bits19"])
 def test_scatter_kernel_edge_cases(cuda, case):
     ids_np, num_rows, d, transposed, dtype = _edge_inputs(
         case, np.random.RandomState(21))
@@ -120,12 +150,90 @@ def test_slab_pre_pass_is_searchsorted(cuda, d):
     rng = np.random.RandomState(23)
     ids = np.concatenate([rng.randint(-50, 20_050, 6000),
                           np.full(500, 4100)])
-    ids32 = scatter.sort_updates(torch.from_numpy(ids).to(cuda))[0]
     rows = scatter.slab_rows(d)
     for num_rows in (20_000, 4 * rows, 4 * rows + 1):
+        ids32 = scatter.sort_updates(torch.from_numpy(ids).to(cuda),
+                                     num_rows)[0]
         got = scatter.slab_starts(ids32, num_rows, rows)
         assert torch.equal(got, scatter._slab_starts_plain(ids32, num_rows,
                                                            rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_rows", [1, 6144, 8192, 476_672, 512 ** 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_sort_kernel_is_the_plain_sort_bitwise(cuda, num_rows, dtype):
+    rng = np.random.RandomState(24)
+    ids = np.concatenate([rng.randint(max(0, num_rows - 300), num_rows,
+                                      50_000),
+                          rng.randint(-3000, 0, 3000),
+                          num_rows + rng.randint(0, 1 << 20, 3000),
+                          np.full(10, 2 ** 31 - 1)])
+    ids = torch.from_numpy(rng.permutation(ids)).to(dtype)
+    if dtype == torch.int64:    # ids past int32 are outside too
+        ids[:10] = 2 ** 40
+    got = scatter.sort_updates(ids.to(cuda), num_rows)
+    want = scatter.sort_updates(ids, num_rows)     # CPU: the plain sort
+    # a stable sort has one answer
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _bucket_inputs(case, rng):
+    """(ids, num_rows) the bucket path takes: 8 or more updates a row."""
+    num_rows = 476_672 if case == "hash_table" else 20_001
+    n = 9 * num_rows
+    ids = rng.randint(0, num_rows, n)
+    if case == "hot_row":       # a row over several pieces
+        ids[: 3 * scatter._BUCKET_PIECE] = num_rows // 3
+    if case == "ids_outside":   # aliasing the rows in their low bits
+        ids[::11] = -rng.randint(1, 1 << 20, len(ids[::11]))
+        ids[5::11] = num_rows + rng.randint(0, 1 << 20, len(ids[5::11]))
+    return rng.permutation(ids), num_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "hot_row", "ids_outside",
+                                  "hash_table"])
+def test_bucket_path_matches_plain_version(cuda, case):
+    rng = np.random.RandomState(26)
+    ids_np, num_rows = _bucket_inputs(case, rng)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    vals = torch.from_numpy(rng.randn(len(ids_np), 4).astype(np.float32)) \
+        .to(cuda)
+    bits = scatter.bucket_bits(len(ids_np), vals, num_rows)
+    assert bits == num_rows.bit_length() - 8
+    got, again = (scatter_add_rows(ids, vals, num_rows) for _ in range(2))
+    assert torch.equal(got, again)
+    want = _scatter_add_rows_plain(ids, vals, num_rows,
+                                   acc_dtype=torch.float64)
+    tol = 1e-5 * want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= tol
+    # its sort and plan against their plain versions, exactly
+    keys, moved = scatter.sort_by_bucket(ids, vals, num_rows, bits)
+    plain = scatter._sort_by_bucket_plain(ids, vals, num_rows, bits)
+    assert torch.equal(keys, plain[0]) and torch.equal(moved, plain[1])
+    rows = 1 << bits
+    starts = scatter.slab_starts(keys, num_rows, rows, bits)
+    assert torch.equal(starts, scatter._slab_starts_plain(keys, num_rows,
+                                                          rows, bits))
+    pieces = scatter.piece_plan(keys, num_rows, rows, scatter._BUCKET_PIECE,
+                                0, bits)
+    assert torch.equal(pieces, scatter._piece_plan_plain(
+        starts, scatter._BUCKET_PIECE, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("piece", [1, 16, 256])
+def test_piece_plan_kernel_matches_plain_version(cuda, piece):
+    rng = np.random.RandomState(25)
+    ids = np.concatenate([rng.randint(0, 20_000, 30_000),
+                          np.full(5000, 4100), rng.randint(0, 300, 5000)])
+    ids32 = torch.sort(torch.from_numpy(ids).to(torch.int32))[0]
+    for rows in (1, 128, 256):
+        got = scatter.piece_plan(ids32.to(cuda), 20_000, rows, piece)
+        want = scatter.piece_plan(ids32, 20_000, rows, piece)
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
