@@ -63,6 +63,19 @@ other grid encodings' presets through training and the command line
               of one epoch each with its exact B1 launches; ``cli
               render`` and ``cli extract`` of triplaneline, which launch
               no kernel.
+11. opt-ins and parallel -- at the default config's widths: the
+              coarse-grid proposal (three epochs, its G_c=64 snapshot
+              refreshed every 4 steps, exactly 2 B1 a step and none in a
+              snapshot, the trained network's snapshot card against CPU,
+              ms/step beside phase 5's network proposals); one step with
+              ``remat_heads`` against one without (loss, gradients, ms,
+              the step's peak memory); three epochs with fresh
+              Monte-Carlo uniforms every step; a two-scene
+              ``MultiSceneTrainer`` (three epochs, exactly 4 B1 a step, ms
+              per scene-step, peak memory, its stacked checkpoint resumed
+              bitwise); ``initialize_distributed`` over NCCL at world size
+              1 and the sharded step's collectives on that group against
+              the plain step.
 
 Monitor files, rendered images, environment maps and the full profiles go
 to ``--out`` (default ``chip_smoke_out/``); the meshes, point clouds and
@@ -1760,6 +1773,360 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the opt-ins and the parallel package
+# ---------------------------------------------------------------------------
+
+# the coarse-grid proposal, its G_c=64 snapshot refreshed every 4 steps
+COARSE = ["renderer.proposal_method=coarse_grid",
+          "renderer.proposal_refresh_interval=4"]
+# every n-th lattice point of the snapshot is computed on the CPU too
+SNAPSHOT_STRIDE = 8
+# a full-width step's loss, monitors and gradients computed twice on the
+# card: a rematerialized head, or a sum over a group of one, repeats the
+# same float32 operations; held to this share of each leaf's largest entry
+# (and the loss to this relative error), and reported bitwise or not
+REPEAT_TOL = 1e-6
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _compare_steps(torch, a, b, label):
+    """(loss, monitors, grads) of two runs of one step: the largest error
+    of each against ``REPEAT_TOL``; returns whether they are bitwise."""
+    from ndjir_torch.train.optim import tree_leaves_with_path
+
+    (la, ma, ga), (lb, mb, gb) = a, b
+    bitwise = torch.equal(la, lb)
+    if abs(la.item() - lb.item()) > REPEAT_TOL * abs(lb.item()):
+        raise AssertionError(f"{label}: loss {la.item()} vs {lb.item()}")
+    for k in mb:
+        if abs(ma[k].item() - mb[k].item()) > REPEAT_TOL * abs(mb[k].item()) \
+                + 1e-12:
+            raise AssertionError(f"{label}: monitor {k} {ma[k].item()} vs "
+                                 f"{mb[k].item()}")
+        bitwise = bitwise and torch.equal(ma[k], mb[k])
+    worst = 0.0
+    for (path, x), (_, y) in zip(tree_leaves_with_path(ga),
+                                 tree_leaves_with_path(gb)):
+        scale = y.abs().max().item()
+        err = (x - y).abs().max().item()
+        if err > REPEAT_TOL * scale:
+            raise AssertionError(f"{label}: gradient {'/'.join(path)} "
+                                 f"differs by {err} (largest {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+        bitwise = bitwise and torch.equal(x, y)
+    return bitwise, worst
+
+
+def coarse_grid_phase(torch, kernels, card_name, net_ms_step):
+    """The coarse-grid proposal at the default widths: three epochs of 4
+    steps with the G_c=64 snapshot refreshed before steps 0, 4 and 8 (exactly
+    2 B1 a step, none in a snapshot: it is built under ``no_grad``), then
+    the trained network's snapshot on the card against the same lattice
+    points on the CPU.  Returns (launches, ms/step of epoch 2)."""
+    from ndjir_torch.models.fields import geometric_apply
+    from ndjir_torch.render import sampler
+    from ndjir_torch.train import trainer as ttrainer
+    from ndjir_torch.train.optim import tree_map
+
+    trainer = make_trainer(torch, COARSE, tag="monitor_coarse_grid")
+    conf = trainer.conf
+    Gc = conf.renderer.proposal_grid_size
+    refreshes, steps = [], []
+    real, real_step = ttrainer.make_proposal_grid, ttrainer.train_step
+
+    def counted(params, c):
+        refreshes.append(len(steps))
+        return real(params, c)
+
+    def step(*a, **k):
+        steps.append(1)
+        return real_step(*a, **k)
+    ttrainer.make_proposal_grid, ttrainer.train_step = counted, step
+    try:
+        launches, epoch_ms, peak = train_phase(
+            torch, kernels, trainer, card_name, STEP_LAUNCHES["default"])
+    finally:
+        ttrainer.make_proposal_grid, ttrainer.train_step = real, real_step
+    iters = trainer.ds.iters_per_epoch
+    want = list(range(0, 3 * iters, conf.renderer.proposal_refresh_interval))
+    if refreshes != want or trainer.proposal_grid is None:
+        raise AssertionError(f"snapshots refreshed before steps {refreshes}"
+                             f", want {want}")
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = sampler.make_proposal_grid(trainer.params, conf)
+    torch.cuda.synchronize()
+    snap_ms = 1e3 * (time.perf_counter() - t0)
+    expect_launches(kernels, "snapshot", dict.fromkeys(kernels.SOURCES, 0))
+    if snap.shape != (Gc,) * 3 + (1,) or snap.requires_grad \
+            or not bool(torch.isfinite(snap).all()):
+        raise AssertionError(f"snapshot {tuple(snap.shape)}")
+    geo = tree_map(lambda t: t.cpu(), trainer.params["geometric-network"])
+    r = conf.renderer.bounding_sphere_radius
+    lin = torch.linspace(-r, r, Gc)
+    pts = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"),
+                      dim=-1).reshape(-1, 3)[::SNAPSHOT_STRIDE]
+    with torch.no_grad():
+        cpu = geometric_apply(geo, pts, conf)[0].reshape(-1)
+    card = snap.reshape(-1)[::SNAPSHOT_STRIDE].cpu()
+    err = (card - cpu).abs().max().item()
+    scale = cpu.abs().max().item()
+    if err > 1e-5 * scale + 1e-6:
+        raise AssertionError(f"snapshot card vs CPU: {err} (largest "
+                             f"{scale})")
+    ms = epoch_ms[-1] / iters
+    log("opt-ins", f"coarse_grid: snapshots refreshed before steps "
+        f"{refreshes}; G_c={Gc} snapshot of the trained network "
+        f"{snap_ms:.1f} ms, 0 launches, {pts.shape[0]} lattice points card "
+        f"vs CPU within {err:.3g} (largest |sdf| {scale:.3g}); epoch 2 "
+        f"{ms:.1f} ms/step (network proposals, phase 5: {net_ms_step:.1f}); "
+        f"peak {peak / 2 ** 30:.2f} GiB on {card_name}")
+    del trainer, snap, geo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def remat_phase(torch, card_name):
+    """One full-width step's loss and gradients with ``remat_heads`` on and
+    off, in turns (off, on, on, off, off, on), after a warm-up step of
+    each: the two agree to ``REPEAT_TOL``; ms and peak memory of each."""
+    from ndjir_torch.train.trainer import loss_and_grads
+
+    trainer = make_trainer(torch, tag="monitor_remat")
+    conf = trainer.conf
+    batch = trainer.next_batch()
+    for remat in (False, True):
+        conf.train.remat_heads = remat
+        loss_and_grads(trainer.params, *batch, 0.5, 1.0, conf,
+                       cdfs=trainer.cdfs)
+    kept, ms, peak = {}, {False: [], True: []}, {}
+    for remat in (False, True, True, False, False, True):
+        conf.train.remat_heads = remat
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = loss_and_grads(trainer.params, *batch, 0.5, 1.0, conf,
+                             cdfs=trainer.cdfs)
+        torch.cuda.synchronize()
+        ms[remat].append(1e3 * (time.perf_counter() - t0))
+        # the step's own peak, above what was allocated before it (the
+        # parameters, moments and the other run's kept gradients)
+        peak[remat] = max(peak.get(remat, 0),
+                          torch.cuda.max_memory_allocated() - before)
+        kept.setdefault(remat, out)
+        del out
+    bitwise, worst = _compare_steps(torch, kept[True], kept[False],
+                                    "remat_heads")
+    log("opt-ins", f"remat_heads: loss {kept[True][0].item():.9g} and every "
+        f"gradient leaf against no remat: "
+        f"{'bitwise equal' if bitwise else f'within {worst:.3g} of the largest entry'}"
+        f"; the step's peak above its inputs {peak[True] / 2 ** 30:.2f} GiB "
+        f"(no remat {peak[False] / 2 ** 30:.2f}, saved "
+        f"{(peak[False] - peak[True]) / 2 ** 30:.2f}); step "
+        f"{' '.join(f'{t:.1f}' for t in ms[True])} ms (no remat "
+        f"{' '.join(f'{t:.1f}' for t in ms[False])}) on {card_name}")
+    del trainer, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak, ms
+
+
+def fresh_seeds_phase(torch, kernels, card_name):
+    """``fixed_graph_seeds: false``: three epochs drawing every step's
+    uniforms anew, all losses finite, exactly 2 B1 a step."""
+    trainer = make_trainer(torch, ["renderer.fixed_graph_seeds=false"],
+                           tag="monitor_fresh_seeds")
+    if trainer.cdfs is not None:
+        raise AssertionError("fresh seeds: the trainer cached a draw")
+    launches, epoch_ms, _ = train_phase(torch, kernels, trainer, card_name,
+                                        STEP_LAUNCHES["default"])
+    ms = epoch_ms[-1] / trainer.ds.iters_per_epoch
+    log("opt-ins", f"fixed_graph_seeds=false: {len(trainer.history)} "
+        f"steps, fresh uniforms each, finite losses; epoch 2 {ms:.1f} "
+        "ms/step")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
+    """Two in-memory scenes (spheres of radius 0.5 and 0.4) in one
+    ``MultiSceneTrainer`` at the default widths, three epochs of 4 steps
+    (exactly 4 B1 a step), then its stacked checkpoint resumed by a fresh
+    trainer, bitwise.  Returns (launches, ms per scene-step, peak)."""
+    from ndjir_torch.config import load_config
+    from ndjir_torch.data.dataset import IDRDataset
+    from ndjir_torch.data.synthetic import render_sphere_scene
+    from ndjir_torch.parallel import multi_scene
+    from ndjir_torch.train.optim import tree_leaves_with_path
+
+    S, epochs = 2, 3
+    base = os.path.join(OUT_DIR, "monitor_multi")
+    conf = load_config("default", overrides=[
+        "valid.skip=true", f"monitor_base_path={base}",
+        f"train.epoch={epochs}", "train.checkpoint_interval_epochs=0",
+        "train.keep_checkpoints=1"])
+    scenes = [render_sphere_scene(n_views=16, H=128, W=128,
+                                  radius=0.5 - 0.1 * i) for i in range(S)]
+
+    def datasets():
+        return [IDRDataset(conf, *sc, train=True, shuffle=True)
+                for sc in scenes]
+    names = [os.path.join(OUT_DIR, "multi", f"sphere{i}") for i in range(S)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mt = multi_scene.MultiSceneTrainer(conf, names, datasets=datasets())
+    state = sum(t.numel() * t.element_size() + 8 * t.numel()
+                for p in mt.params for _, t in tree_leaves_with_path(p))
+    log("multi-scene", f"reckoned peak: {S} scenes' parameters and Adam "
+        f"moments {state / 2 ** 30:.2f} GiB beside one scene's step "
+        f"(phase 5's peak, its own state included: "
+        f"{one_scene_peak / 2 ** 30:.2f} GiB), ~"
+        f"{(one_scene_peak + state / S * (S - 1)) / 2 ** 30:.2f} GiB of 80")
+    step_ms = []
+    real = multi_scene.multi_scene_train_step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    multi_scene.multi_scene_train_step = timed
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        history = mt.train()
+        train_s = time.perf_counter() - t0
+    finally:
+        multi_scene.multi_scene_train_step = real
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    iters = min(ds.iters_per_epoch for ds in mt.datasets)
+    steps = epochs * iters
+    want = dict.fromkeys(kernels.SOURCES, 0)
+    want["scatter_add_rows"] = 2 * S * steps
+    if launches != want:
+        raise AssertionError(f"multi-scene launches {launches}, want {want}")
+    if len(history) != steps or any(
+            not m["grads_finite"] or not math.isfinite(m["loss"])
+            for mons in history for m in mons):
+        raise AssertionError("multi-scene: a step non-finite or missing")
+    last = step_ms[-iters:]
+    per_scene = sum(last) / len(last) / S
+
+    t0 = time.perf_counter()
+    fresh = multi_scene.MultiSceneTrainer(conf, names, datasets=datasets())
+    load_s = time.perf_counter() - t0
+    if fresh.start_epoch != epochs:
+        raise AssertionError(f"resumed at epoch {fresh.start_epoch}")
+    n = 0
+    for i in range(S):
+        if fresh.opt_states[i]["count"] != mt.opt_states[i]["count"]:
+            raise AssertionError(f"scene {i}: step count after the resume")
+        for a, b in ((mt.params[i], fresh.params[i]),
+                     (mt.opt_states[i]["mu"], fresh.opt_states[i]["mu"]),
+                     (mt.opt_states[i]["nu"], fresh.opt_states[i]["nu"])):
+            for (p, x), (_, y) in zip(tree_leaves_with_path(a),
+                                      tree_leaves_with_path(b)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"scene {i} {'/'.join(p)} differs "
+                                         "after the resume")
+                n += 1
+    size = sum(os.path.getsize(os.path.join(mt.ckpt_dir, f))
+               for f in os.listdir(mt.ckpt_dir))
+    losses = " ".join(f"{m['loss']:.6g}" for m in history[-1])
+    log("multi-scene", f"S={S}: {steps} steps in {train_s:.1f} s (the "
+        f"final stacked checkpoint's save included), launches {launches}; "
+        f"epoch 2 {per_scene:.1f} ms per scene-step (steps "
+        f"{' '.join(f'{t:.1f}' for t in last)} ms); last losses {losses}; "
+        f"peak {peak} B ({peak / 2 ** 30:.2f} GiB) on {card_name}")
+    log("multi-scene", f"stacked checkpoint ({size} B) resumed by a fresh "
+        f"trainer in {load_s:.1f} s at epoch {fresh.start_epoch}: {n} "
+        "leaves and the step counts bitwise equal")
+    del mt, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(f"{base}_multiscene")  # the stacked checkpoint; checked
+    return launches, per_scene, peak
+
+
+def nccl_phase(torch, card_name):
+    """``initialize_distributed`` over NCCL at world size 1, then the
+    sharded step's collectives on that group of one (the counts summed
+    before the division, the gradients and monitors summed after, the
+    global finite flag) against the plain step."""
+    import torch.distributed as dist
+
+    from ndjir_torch.parallel.mesh import ShardReducer
+    from ndjir_torch.parallel.multi_scene import initialize_distributed
+    from ndjir_torch.train.optim import apply_updates
+    from ndjir_torch.train.trainer import loss_and_grads
+
+    initialize_distributed(f"localhost:{_free_port()}", 1, 0,
+                           device="cuda")
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"process group {dist.get_backend()}")
+        trainer = make_trainer(torch, tag="monitor_nccl")
+        conf = trainer.conf
+        batch = trainer.next_batch()
+        args = (trainer.params, *batch, 0.5, 1.0, conf)
+        plain = loss_and_grads(*args, cdfs=trainer.cdfs)
+        red = ShardReducer(None)
+        loss, mons, grads = loss_and_grads(*args, cdfs=trainer.cdfs,
+                                           reduce_counts=red.counts)
+        sharded = (loss, red.monitors(mons), red.grads(grads))
+        bitwise, worst = _compare_steps(torch, sharded, plain,
+                                        "sharded step")
+        if not apply_updates(trainer.params, sharded[2], trainer.opt_state,
+                             1e-3, 1e-3, conf, group=red.group):
+            raise AssertionError("sharded step: gradients not finite")
+        log("nccl", f"initialize_distributed: backend "
+            f"{dist.get_backend()}, world size {dist.get_world_size()}; the "
+            f"sharded step (counts, gradients and monitors all-reduced, "
+            f"global finite flag) against the plain step: "
+            f"{'bitwise equal' if bitwise else f'within {worst:.3g}'}, "
+            f"loss {loss.item():.9g}, update taken on {card_name}")
+        del trainer, plain, sharded, grads
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def opt_ins_phase(torch, kernels, card_name, net_ms_step, one_scene_peak):
+    """Phase 11.  Returns B1's launches by path and the phase's numbers."""
+    launches, numbers = {}, {}
+    launches["coarse_grid"], numbers["coarse_grid_ms_step"] = \
+        coarse_grid_phase(torch, kernels, card_name, net_ms_step)
+    numbers["remat_peak"], numbers["remat_ms"] = remat_phase(torch,
+                                                             card_name)
+    launches["fresh_seeds"], numbers["fresh_seeds_ms_step"] = \
+        fresh_seeds_phase(torch, kernels, card_name)
+    launches["multi_scene"], numbers["ms_per_scene_step"], \
+        numbers["multi_scene_peak"] = multi_scene_phase(
+            torch, kernels, card_name, one_scene_peak)
+    nccl_phase(torch, card_name)
+    return launches, numbers
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1831,8 +2198,10 @@ def main() -> int:
     log("kernels", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches = {"default": train_phase(torch, kernels, trainer, card_name,
-                                       STEP_LAUNCHES["default"])[0]}
+    default_launches, default_ms, default_peak = train_phase(
+        torch, kernels, trainer, card_name, STEP_LAUNCHES["default"])
+    launches = {"default": default_launches}
+    net_ms_step = default_ms[-1] / trainer.ds.iters_per_epoch
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1900,8 +2269,14 @@ def main() -> int:
     cli_launches.update(enc_launches)
     log("encodings", f"done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    opt_launches, _ = opt_ins_phase(torch, kernels, card_name, net_ms_step,
+                                    default_peak)
+    log("opt-ins", f"done in {time.perf_counter() - t0:.1f} s")
+
     # main-path launches: the training steps' and the render, validation
-    # and extraction calls', then each command's of the command line
+    # and extraction calls', then each command's of the command line, then
+    # phase 11's training paths'
     records = [scatter_record, fold_record, build_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],
@@ -1909,6 +2284,8 @@ def main() -> int:
                    for path in launches}
         for path, by_command in cli_launches.items():
             by_path[path] = {c: n[r["name"]] for c, n in by_command.items()}
+        for path, n in opt_launches.items():
+            by_path[path] = {"train": n[r["name"]]}
         r["launches"] = sum(sum(v.values()) for v in by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] == 0:

@@ -61,8 +61,8 @@ class IDRDataset:
         self.xy = np.asarray([xx.flatten(), yy.flatten()]).T
 
         self.size = len(self.images)
-        # the reference's seed for process 0 (per-process seeds come with
-        # multi-device training, ROADMAP A14)
+        # the reference's seed for process 0; every rank of a sharded run
+        # draws the same batches and takes its slice (parallel/mesh.py)
         self.rng = rng if rng is not None else np.random.RandomState(313)
         self.reset()
 

@@ -4,11 +4,18 @@ reference python/loss.py:27-192).
 Sample points -> pb_render -> nine weighted terms (RGB, eikonal, TV, mask
 BCE, base-color smoothness prior, roughness / specular aleatoric priors and
 their log-std regularizers); every term is returned for monitoring.
+
+Every term is a sum over rays (and their samples) divided by a count over
+the whole batch: ``sum(obj_mask)``, ``sum(mask)`` (times N), or B*R.  A
+ray-sharded step (:mod:`ndjir_torch.parallel.mesh`) hands
+``reduce_counts``, which sums those counts across the shards before the
+division; each shard's loss is then its share of the batch's loss, and the
+sum of the shards' gradients is the batch's gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -17,37 +24,50 @@ from ndjir_torch.render.sampler import sample_points
 
 
 def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
-               lv_gain, conf, cdfs: Optional[Dict[str, torch.Tensor]] = None
+               lv_gain, conf, cdfs: Optional[Dict[str, torch.Tensor]] = None,
+               step: Optional[int] = None,
+               proposal_grid: Optional[torch.Tensor] = None,
+               reduce_counts: Optional[Callable[[torch.Tensor],
+                                                torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (scalar loss, dict of per-term monitors).
 
     camloc (B, 3); raydir (B, R, 3); color_gt (B, R, 3); obj_mask (B, R, 1).
-    ``cdfs`` are the Monte-Carlo uniforms (:func:`make_mc_cdfs` when None).
+    ``cdfs`` are the Monte-Carlo uniforms (``make_mc_cdfs(..., step)``
+    when None); ``proposal_grid`` the coarse-grid snapshot.
+    ``reduce_counts`` maps the stacked counts ``[sum(obj_mask), sum(mask),
+    B*R]`` to their sums over all shards of the batch.
     """
     B, R, _ = color_gt.shape
     tr = conf.train
 
     if cdfs is None:
-        cdfs = make_mc_cdfs(conf, B, R, dtype=color_gt.dtype,
+        cdfs = make_mc_cdfs(conf, B, R, step=step, dtype=color_gt.dtype,
                             device=color_gt.device)
     x_fg, t_fg, x_bg, t_bg, mask = sample_points(
         params, camloc, raydir, cdfs["stratified"], cdfs["background"], conf,
-        rand_u=cdfs["upsample"])
+        rand_u=cdfs["upsample"], proposal_grid=proposal_grid)
     res = pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
                     cos_anneal_ratio, lv_gain, cdfs, conf)
 
     N = x_fg.shape[2]
     zero = torch.zeros((), dtype=color_gt.dtype, device=color_gt.device)
+    n_obj, n_mask, n_rays = torch.sum(obj_mask), torch.sum(mask), B * R
+    if reduce_counts is not None:
+        n_obj, n_mask, n_rays = reduce_counts(torch.stack([
+            n_obj, n_mask.to(n_obj.dtype),
+            torch.tensor(float(n_rays), dtype=n_obj.dtype,
+                         device=n_obj.device)])).unbind()
 
     # RGB (loss.py:59-66)
     err = torch.abs(res["color_pixel"] - color_gt) if tr.rgb_loss == "l1" \
         else (res["color_pixel"] - color_gt) ** 2
     if tr.mask_weight > 0.0:
-        loss_rgb = torch.sum(err * obj_mask) / (torch.sum(obj_mask) + 1e-5)
+        loss_rgb = torch.sum(err * obj_mask) / (n_obj + 1e-5)
     else:
-        loss_rgb = torch.sum(err) / (B * R)
+        loss_rgb = torch.sum(err) / n_rays
 
-    denorm = torch.sum(mask) * N + 1e-5
+    denorm = n_mask * N + 1e-5
 
     # eikonal (loss.py:69-76)
     if tr.eikonal_weight > 0.0:
@@ -66,7 +86,7 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
     if tr.mask_weight > 0.0:
         p = torch.clamp(res["obj_mask_pred"], 1e-3, 1.0 - 1e-3)
         bce = -(obj_mask * torch.log(p) + (1.0 - obj_mask) * torch.log(1.0 - p))
-        loss_mask = torch.sum(bce) / (torch.sum(mask) + 1e-5)
+        loss_mask = torch.sum(bce) / (n_mask + 1e-5)
     else:
         loss_mask = zero
 

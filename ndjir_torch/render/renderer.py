@@ -12,15 +12,20 @@ so the eikonal term's gradient is a true double backward.  The base-color
 prior re-queries the geometric network at perturbed points: on an octa
 table both point sets share one grid gather, so the step's backward makes
 one B1 and one B2 launch (reference renderer.py:145-182); otherwise the
-re-query is a second, separate grid query (:183-188).
+re-query is a second, separate grid query (:183-188).  ``train.remat_heads``
+recomputes the material and light heads in the backward pass instead of
+keeping their activations (non-reentrant ``torch.utils.checkpoint``, the
+counterpart of the JAX package's ``jax.checkpoint``, renderer.py:112-136).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from functools import partial
+from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ndjir_torch.models.brdf import masked_dot, specular_brdf_model
 from ndjir_torch.models.fields import (
@@ -65,22 +70,36 @@ def sdf_value_and_spatial_grad(params, x, conf, with_tv=False, tv_sym=True,
     return out[0], out[1], out[2], grad_x, tv
 
 
-def make_mc_cdfs(conf, B, R, dtype=torch.float32,
+def mc_seed(seed: int, step: Optional[int]) -> int:
+    """The generator seed of one Monte-Carlo input: ``seed`` itself, or,
+    for a fresh draw at ``step`` (``renderer.fixed_graph_seeds: false``),
+    ``seed * 2**32 + step``, distinct for every (seed, step) pair with both
+    below 2^32.  The JAX package folds the step into its key
+    (``jax.random.fold_in``); the draws differ, the law is the same."""
+    if step is None:
+        return seed
+    if not 0 <= step < 2 ** 32:
+        raise ValueError(f"step {step} outside [0, 2^32)")
+    return seed * 2 ** 32 + step
+
+
+def make_mc_cdfs(conf, B, R, step: Optional[int] = None,
+                 dtype=torch.float32,
                  device="cuda") -> Dict[str, torch.Tensor]:
     """Monte-Carlo uniforms for sampling, one ``torch.Generator`` per seed
     of ``conf.renderer`` (the reference's fixed-seed graph inputs,
-    config/default.yaml:117-124).  The draws differ from the JAX
-    reference's; tests hand both sides the same numbers."""
+    config/default.yaml:117-124).  With ``renderer.fixed_graph_seeds``
+    the draw is the same at every step; otherwise ``step`` is folded into
+    every seed, the perturbation's normal draw's too (:func:`mc_seed`).
+    The draws differ from the JAX reference's; tests hand both sides the
+    same numbers."""
     r = conf.renderer
-    if not r.fixed_graph_seeds:
-        raise NotImplementedError(
-            "renderer.fixed_graph_seeds=false is not ported yet "
-            "(ROADMAP A13: precision and opt-ins)")
     n_the, n_phi = r.n_thetas, 2 * r.n_thetas
+    fresh = None if r.fixed_graph_seeds else step
 
     def gen(seed):
         g = torch.Generator(device=device)
-        g.manual_seed(seed)
+        g.manual_seed(mc_seed(seed, fresh))
         return g
 
     def u(seed, shape):
@@ -104,15 +123,31 @@ def make_mc_cdfs(conf, B, R, dtype=torch.float32,
     )
 
 
+_HEADS = dict(base_color=base_color_apply, soft_vis=soft_visibility_apply,
+              env=environment_light_apply, photo=photogrammetric_apply,
+              implicit=implicit_illumination_apply, rough=roughness_apply,
+              spec=specular_reflectance_apply, bg=background_apply)
+
+
+def _heads(conf):
+    """The material and light heads by name; with ``train.remat_heads``
+    each runs under a non-reentrant checkpoint, which keeps only its
+    inputs and recomputes it in the backward pass.  The heads read the
+    normal, whose graph the eikonal term differentiates again, so only the
+    heads are wrapped: a reentrant checkpoint, or one around the geometric
+    network, would cut that double backward."""
+    if not conf.train.get("remat_heads", False):
+        return _HEADS
+    return {k: partial(checkpoint, f, use_reentrant=False)
+            for k, f in _HEADS.items()}
+
+
 def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
               cos_anneal_ratio, lv_gain, cdfs, conf) -> Dict[str, torch.Tensor]:
     """Render a batch of rays to pixel radiance + auxiliary loss terms
     (reference renderer.py:32-209).  ``cos_anneal_ratio`` and ``lv_gain``
     are the epoch schedules' scalars, ``cdfs`` from :func:`make_mc_cdfs`."""
-    if conf.train.get("remat_heads", False):
-        raise NotImplementedError(
-            "train.remat_heads is not ported yet (ROADMAP A13: precision "
-            "and opt-ins)")
+    h = _heads(conf)
     B, R, N, _ = x_fg.shape
     raydir_r = raydir.reshape(B, R, 1, 3)
     view_dir = -raydir_r
@@ -160,7 +195,7 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
     # background alpha/color (NeRF++ or constant; renderer.py:70-77)
     if conf.background_modeling:
         delta_bg = (t_bg[:, :, 1:, :] - t_bg[:, :, :-1, :]).detach()
-        alpha_bg, color_bg = background_apply(
+        alpha_bg, color_bg = h["bg"](
             params["background-network"], x_bg, view_dir, delta_bg, conf)
     else:
         alpha_bg = torch.ones((B, R, 1, 1), dtype=x_fg.dtype,
@@ -194,12 +229,12 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
     # diffuse: uniform hemisphere MC of env * soft-vis * cos (renderer.py:94-119)
     uniform_dirs = sample_uniform_directions(
         normal_pixel, cdfs["diffuse_the"], cdfs["diffuse_phi"]).detach()
-    env_int = environment_light_apply(
+    env_int = h["env"](
         params["environment-light-network"], uniform_dirs, conf)
-    soft_vis = soft_visibility_apply(
+    soft_vis = h["soft_vis"](
         params["soft-visibility-light-network"], x_pixel, uniform_dirs,
         feature_pixel, normal_pixel_M, conf)
-    implicit_int = implicit_illumination_apply(
+    implicit_int = h["implicit"](
         params.get("implicit-illumination-network"), x_fg, feature_x_fg,
         grad_x_fg, conf)
     implicit_pixel = VR(implicit_int)
@@ -207,14 +242,14 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
     cos = masked_dot(normal_pixel_M, uniform_dirs)
     diffuse_env = torch.mean(soft_vis * env_int * cos, dim=2)
     diffuse_light_pixel = diffuse_env + implicit_pixel
-    base_color = base_color_apply(
+    base_color = h["base_color"](
         params["base-color-network"], x_fg, feature_x_fg, grad_x_fg, conf)
 
     # materials (renderer.py:122-128)
-    roughness, std_roughness = roughness_apply(
+    roughness, std_roughness = h["rough"](
         params["roughness-network"], x_fg, feature_x_fg, grad_x_fg, conf)
     roughness_pixel = VR(roughness)
-    specular_reflectance, std_specular = specular_reflectance_apply(
+    specular_reflectance, std_specular = h["spec"](
         params.get("specular-reflectance-network"), x_fg, feature_x_fg,
         grad_x_fg, conf)
     specular_pixel = VR(specular_reflectance)
@@ -230,9 +265,9 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
     sBRDF, cos_s = specular_brdf_model(
         normal_pixel, view_dir, spec_dirs, roughness_pixel, specular_pixel,
         conf)
-    env_int_s = environment_light_apply(
+    env_int_s = h["env"](
         params["environment-light-network"], spec_dirs, conf)
-    soft_vis_s = soft_visibility_apply(
+    soft_vis_s = h["soft_vis"](
         params["soft-visibility-light-network"], x_pixel, spec_dirs,
         feature_pixel, normal_pixel_M, conf)
 
@@ -252,7 +287,7 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
 
     # composition with photogrammetric light (renderer.py:159-176)
     if conf.photogrammetric_light_network.use_me:
-        photo_int = photogrammetric_apply(
+        photo_int = h["photo"](
             params["photogrammetric-light-network"], x_fg, camloc, view_dir,
             feature_x_fg, grad_x_fg, lv_gain, conf)
         photo_pixel = VR(photo_int)
@@ -276,7 +311,7 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
         obj_mask_pred = torch.zeros((B, R, 1), dtype=x_fg.dtype,
                                     device=x_fg.device)
 
-    base_color_ptb = base_color_apply(
+    base_color_ptb = h["base_color"](
         params["base-color-network"], x_ptb, feature_ptb, None, conf)
 
     return dict(

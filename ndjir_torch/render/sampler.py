@@ -3,9 +3,11 @@
 Counterpart of ``ndjir_tpu/render/sampler.py``.  Sampling is data
 generation, not part of the differentiated graph: :func:`sample_points` runs
 under ``torch.no_grad()`` (the reference makes it a non-differentiable
-PythonFunction, reference python/sampler.py:24-314).  The coarse-grid
-proposal opt-in (``renderer.proposal_method: coarse_grid``) is not ported
-yet (ROADMAP A13); ``renderer.proposal_grid_bf16`` is.
+PythonFunction, reference python/sampler.py:24-314).  With
+``renderer.proposal_method: coarse_grid`` the proposal SDF values are
+trilinear reads of a cached G_c^3 snapshot (:func:`make_proposal_grid`,
+refreshed on the trainer's cadence) instead of geometric-network
+evaluations; ``renderer.proposal_grid_bf16`` reads the grid in bf16.
 
 Shapes (B rays-batch, R rays, N0 stratified, M per upsample, U rounds, Nb bg):
   x_fg (B, R, N0+M*U, 3); t_fg (B, R, N0+M*U+1, 1);
@@ -19,6 +21,7 @@ from typing import Tuple
 import torch
 
 from ndjir_torch.models.fields import geometric_apply
+from ndjir_torch.ops.grid import query_voxel
 from ndjir_torch.ops.intersect import (
     ray_aabb_intersection,
     ray_sphere_intersection,
@@ -183,22 +186,27 @@ def _proposal_params(params, conf):
 
 
 def sample_importance(params, conf, camloc, raydir, t_near, t_far, t,
-                      rand_u=None):
+                      rand_u=None, sdf_fn=None):
     """U rounds of hierarchical upsampling with gain 64 * 2^u
     (reference: sampler.py:167-242).  SDF values are evaluated once per
     position and carried through the merge-sorts, so round u evaluates only
-    the M new positions of round u-1 (same values as re-evaluating all)."""
-    params = _proposal_params(params, conf)
+    the M new positions of round u-1 (same values as re-evaluating all).
+    ``sdf_fn(t)`` overrides the proposal SDF source (the coarse grid); by
+    default it is the geometric network."""
+    if sdf_fn is None:
+        params = _proposal_params(params, conf)
+
+        def sdf_fn(t_):
+            return _proposal_sdf(params, conf, camloc, raydir, t_)
+
     U = conf.renderer.n_upsamples
     base_gain = conf.renderer.sampling_sigmoid_gain
-    sdf = _proposal_sdf(params, conf, camloc, raydir, t)
+    sdf = sdf_fn(t)
     for u in range(U):
         uu = None if rand_u is None else rand_u[u]
         t_new = _propose_t(conf, t, sdf, t_near, t_far, base_gain * 2 ** u, uu)
         if u < U - 1:
-            t, sdf = _merge_sorted(
-                t, sdf, t_new,
-                _proposal_sdf(params, conf, camloc, raydir, t_new))
+            t, sdf = _merge_sorted(t, sdf, t_new, sdf_fn(t_new))
         else:
             # the final round's new positions never need an SDF value
             t = torch.sort(torch.cat([t, t_new], dim=2), dim=2)[0]
@@ -212,21 +220,62 @@ def sample_background(t_base, background_u):
     return torch.sort(t_base.reshape(B, R, 1, 1) / background_u, dim=2)[0]
 
 
+# points of the G_c^3 lattice evaluated per geometric-network call while
+# a snapshot is built: bounds the MLP's activations (G_c=64 is 262,144
+# points, ~0.27 GB per 256-wide f32 layer at once)
+_SNAPSHOT_CHUNK = 65536
+
+
+@torch.no_grad()
+def make_proposal_grid(params, conf) -> torch.Tensor:
+    """SDF snapshot (G_c, G_c, G_c, 1) on the lattice ``linspace(-r, r,
+    G_c)``^3 over the bounding box (reference: sampler.py:243): the
+    coarse-grid proposal's table, ``G_c = renderer.proposal_grid_size``.
+    Built under ``no_grad`` in chunks of points, so it keeps no graph and
+    its grid queries launch no scatter."""
+    geo = params["geometric-network"]
+    Gc = int(conf.renderer.get("proposal_grid_size", 64))
+    r = conf.renderer.bounding_sphere_radius
+    lin = torch.linspace(-r, r, Gc, dtype=torch.float32,
+                         device=geo["gain"].device)
+    pts = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"),
+                      dim=-1).reshape(-1, 3)
+    sdf = torch.cat([geometric_apply(geo, pts[i:i + _SNAPSHOT_CHUNK],
+                                     conf)[0]
+                     for i in range(0, len(pts), _SNAPSHOT_CHUNK)])
+    return sdf.reshape(Gc, Gc, Gc, 1)
+
+
+def _coarse_grid_sdf_fn(proposal_grid, conf, camloc, raydir):
+    """Proposal SDF from trilinear reads of the snapshot over (-r, r)^3
+    (reference: sampler.py:263)."""
+    r = conf.renderer.bounding_sphere_radius
+    B, R, _ = raydir.shape
+
+    def sdf_fn(t_):
+        x = camloc.reshape(B, 1, 1, 3) + t_ * raydir.reshape(B, R, 1, 3)
+        return query_voxel(x, proposal_grid, (-r,) * 3, (r,) * 3)
+
+    return sdf_fn
+
+
 @torch.no_grad()
 def sample_points(params, camloc, raydir, stratified_u, background_u, conf,
-                  rand_u=None) -> Tuple[torch.Tensor, ...]:
-    """Full point-sampling pass (reference: sampler.py:256-299); returns
-    (x_fg, t_fg, x_bg, t_bg, mask)."""
-    if conf.renderer.get("proposal_method", "network") != "network":
-        raise NotImplementedError(
-            "renderer.proposal_method=coarse_grid is not ported yet "
-            "(ROADMAP A13: precision and opt-ins)")
+                  rand_u=None, proposal_grid=None) -> Tuple[torch.Tensor, ...]:
+    """Full point-sampling pass (reference: sampler.py:276); returns
+    (x_fg, t_fg, x_bg, t_bg, mask).  With ``renderer.proposal_method:
+    coarse_grid`` and a ``proposal_grid`` from :func:`make_proposal_grid`
+    the proposals read the snapshot; with no grid they run the network."""
+    sdf_fn = None
+    if (conf.renderer.get("proposal_method", "network") == "coarse_grid"
+            and proposal_grid is not None):
+        sdf_fn = _coarse_grid_sdf_fn(proposal_grid, conf, camloc, raydir)
     B, R, _ = raydir.shape
     t_near, t_far, mask = t_near_far(camloc, raydir, conf)
     t = sample_stratified(t_near, t_far, stratified_u,
                           conf.renderer.n_samples0)
     t = sample_importance(params, conf, camloc, raydir, t_near, t_far, t,
-                          rand_u)
+                          rand_u, sdf_fn)
 
     x_fg = camloc.reshape(B, 1, 1, 3) + t * raydir.reshape(B, R, 1, 3)
     t_fg = torch.cat([t, t_far.reshape(B, R, 1, 1)], dim=2)

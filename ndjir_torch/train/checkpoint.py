@@ -334,7 +334,8 @@ def load_checkpoint(fpath: str, params_template, opt_state_template=None
     """Restore (params, opt_state, manifest-extra) onto templates: the
     stored values are copied into the templates' tensors, in place, so
     they keep their dtypes and devices; the optimizer's step count is
-    set in ``opt_state_template``."""
+    set in ``opt_state_template`` (a list of counts, one per scene, for a
+    multi-scene checkpoint's stacked state)."""
     with open(fpath, "rb") as f:
         buf = bytearray(os.fstat(f.fileno()).st_size)
         f.readinto(buf)
@@ -346,7 +347,10 @@ def load_checkpoint(fpath: str, params_template, opt_state_template=None
         opt_state = opt_state_template
         _restore(opt_state["mu"], adam["mu"], ("opt_state", "mu"))
         _restore(opt_state["nu"], adam["nu"], ("opt_state", "nu"))
-        opt_state["count"] = int(_tensor(adam["count"]))
+        count = _tensor(adam["count"])
+        # a multi-scene checkpoint stacks one count per scene
+        opt_state["count"] = int(count) if count.dim() == 0 \
+            else count.tolist()
     meta_path = fpath.replace(".msgpack", ".json")
     extra = {}
     step = 0

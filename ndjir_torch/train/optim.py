@@ -25,6 +25,7 @@ import math
 from typing import Any, Dict, Iterator, Tuple
 
 import torch
+import torch.distributed
 
 from ndjir_torch.models.fields import is_grid_feature_path
 
@@ -55,10 +56,12 @@ def init_optimizer(params) -> Dict[str, Any]:
 
 @torch.no_grad()
 def apply_updates(params, grads, state, lr_weight: float, lr_feat: float,
-                  conf) -> bool:
+                  conf, group=None) -> bool:
     """One optimizer step, in place on ``params`` and ``state``.  ``grads``
     mirrors ``params`` and is consumed (overwritten).  Returns whether the
-    gradients were finite (the step was taken)."""
+    gradients were finite (the step was taken).  With a process ``group``
+    (a sharded step, its gradients already summed) the flag is the AND over
+    the group's ranks, so all of them skip a step together."""
     wd = conf.train.weight_decay
     leaves = list(tree_leaves_with_path(params))
     g_leaves = dict(tree_leaves_with_path(grads))
@@ -76,8 +79,12 @@ def apply_updates(params, grads, state, lr_weight: float, lr_feat: float,
         gs = [g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
               for g in gs]
 
-    finite = bool(torch.stack([torch.isfinite(g).all() for g in gs]).all())
-    if not finite:
+    finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
+    if group is not None:
+        finite = finite.to(torch.int32)
+        torch.distributed.all_reduce(finite, torch.distributed.ReduceOp.MIN,
+                                     group=group)
+    if not bool(finite):
         return False
 
     t = state["count"] + 1

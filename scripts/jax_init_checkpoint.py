@@ -2,11 +2,12 @@
 """Write the JAX package's initial weights as a flax-msgpack checkpoint.
 
     JAX_PLATFORMS=cpu python3 scripts/jax_init_checkpoint.py OUT.msgpack \
-        [overrides]
+        [--key K] [overrides]
 
 This writes ``flax.serialization.to_bytes({"params": init_model(
-jax.random.PRNGKey(0), conf)})`` for the default config with the given
-dotted overrides: the starting point of a JAX training run of that config.
+jax.random.PRNGKey(K), conf)})`` (K defaults to 0) for the default config
+with the given dotted overrides: the starting point of a JAX training run
+of that config.
 ``jax.random`` is threefry, so the bits are the same on any backend; the
 file is what the JAX package's quality runs started from.  It has no
 manifest, so a run handed it starts at epoch 0
@@ -75,17 +76,22 @@ def main(argv=None) -> int:
     from ndjir_tpu.config import load_config
     from ndjir_tpu.models.fields import init_model
 
-    conf = load_config("default", overrides=argv[1:])
-    params = jax.device_get(init_model(jax.random.PRNGKey(0), conf))
+    out, rest = argv[0], list(argv[1:])
+    key = 0
+    if rest[:1] == ["--key"]:
+        key = int(rest[1])
+        rest = rest[2:]
+    conf = load_config("default", overrides=rest)
+    params = jax.device_get(init_model(jax.random.PRNGKey(key), conf))
     raw = to_bytes({"params": params})
-    with open(argv[0], "wb") as f:
+    with open(out, "wb") as f:
         f.write(raw)
     packed = pack(raw)
     assert unpack(packed) == raw
-    with open(argv[0] + ".packed", "wb") as f:
+    with open(out + ".packed", "wb") as f:
         f.write(packed)
     leaves = jax.tree_util.tree_leaves_with_path(params)
-    print(f"{argv[0]}: {len(leaves)} leaves, {len(raw):,} bytes "
+    print(f"{out}: PRNGKey({key}), {len(leaves)} leaves, {len(raw):,} bytes "
           f"({len(packed):,} packed); " + ", ".join(
               f"{jax.tree_util.keystr(p)} {tuple(v.shape)} {v.dtype}"
               for p, v in leaves if v.size > 100_000))

@@ -1,7 +1,7 @@
 """The port's ``Trainer`` on the CPU at a tiny size: the epoch schedule's
 one-epoch lag, the step record, its checkpoint, an IDR folder with the DTU
-Chamfer hook of the final validation, and what it refuses because it is
-not ported yet.  Its arithmetic is held against the JAX reference by
+Chamfer hook of the final validation, and the opt-ins it refused before
+they were ported.  Its arithmetic is held against the JAX reference by
 ``tests/test_torch_slice.py``, its command line by
 ``tests/test_torch_cli.py``."""
 
@@ -72,16 +72,25 @@ def test_lr_follows_the_lagged_schedule_then_every_leaf_moves(tmp_path):
 
 @pytest.mark.parametrize("overrides,item", [
     (["parallel.mesh_shape=[2, 1]"], "A14"),
-    # the bf16 MLP is ported; the production preset with head
-    # rematerialization is not yet
+    # the production preset with head rematerialization
     pytest.param(["precision.mlp_dtype=bfloat16", "train.remat_heads=true"],
                  "A13", id="precision.mlp_dtype=bfloat16-A13"),
     (["renderer.fixed_graph_seeds=false"], "A13"),
     (["renderer.proposal_method=coarse_grid"], "A13"),
 ], ids=lambda v: v[0] if isinstance(v, list) else v)
 def test_refuses_what_is_not_ported(tmp_path, overrides, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _trainer(tmp_path, overrides)
+    """What ROADMAP A13 and A14 ported is refused no longer: each opt-in
+    trains an epoch, and a sharded mesh asks for the process group it runs
+    in (``tests/test_torch_parallel.py`` runs it over gloo)."""
+    if item == "A14":
+        with pytest.raises(ValueError, match="needs 2 processes"):
+            _trainer(tmp_path, overrides)
+        return
+    tr = _trainer(tmp_path, overrides)
+    tr.train(stop_epoch=1)
+    assert len(tr.history) == 2
+    for m in tr.history:
+        assert m["grads_finite"] and np.isfinite(m["loss"])
 
 
 def test_refuses_to_reach_a_checkpoint(tmp_path):
