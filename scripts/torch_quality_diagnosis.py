@@ -3,7 +3,7 @@
 
     python3 scripts/torch_quality_diagnosis.py kernel [--out DIR]
     python3 scripts/torch_quality_diagnosis.py uniforms FILE.npz [--out DIR]
-        [--init CKPT] [--mlp-dtype float32]
+        [--init CKPT | --seed S] [--mlp-dtype float32]
 
 Both run the configuration of ``scripts/torch_quality_benchmark.py`` (G=256
 f32 grid, bf16 MLP, mask term, radius 0.75) on its v2 scene, on the card.
@@ -18,10 +18,10 @@ gradient leaf, with f32 MLP operands and with the run's bf16 ones.
 ``uniforms`` trains and scores the v2 benchmark with the Monte-Carlo
 uniforms read from FILE in place of the port's own draw; FILE is what
 ``scripts/jax_mc_uniforms.py`` writes, the JAX package's draw for this
-configuration.  Initial weights stay the port's (seed 0) unless
-``--init CKPT`` names a flax-msgpack checkpoint (or its ``.packed`` form)
-whose parameters replace them before the first epoch, which still runs at
-lr=0: ``scripts/jax_init_checkpoint.py`` writes the JAX package's
+configuration.  Initial weights stay the port's draw (seed 0, or
+``--seed S``) unless ``--init CKPT`` names a flax-msgpack checkpoint (or
+its ``.packed`` form) whose parameters replace them before the first
+epoch, which still runs at lr=0: ``scripts/jax_init_checkpoint.py`` writes the JAX package's
 ``init_model(PRNGKey(0), conf)`` for this configuration.  ``--mlp-dtype
 float32`` runs the MLPs on f32 operands in place of the benchmark's bf16.
 """
@@ -150,7 +150,8 @@ def load_init(trainer, ckpt: str, work: str) -> None:
           f"{grid.double().std().item():.9g}", flush=True)
 
 
-def uniforms(path: str, work: str, init=None, mlp_dtype=None) -> int:
+def uniforms(path: str, work: str, init=None, mlp_dtype=None,
+             seed: int = 0) -> int:
     import torch
 
     from ndjir_torch.train import trainer as ttrainer
@@ -184,7 +185,7 @@ def uniforms(path: str, work: str, init=None, mlp_dtype=None) -> int:
         return trainer
 
     qb.make_trainer = make
-    return qb.main(["--scene", "v2", "--out", work])
+    return qb.main(["--scene", "v2", "--out", work, "--seed", str(seed)])
 
 
 def main(argv=None) -> int:
@@ -203,6 +204,9 @@ def main(argv=None) -> int:
     u.add_argument("--mlp-dtype", choices=("bfloat16", "float32"),
                    default=None, help="the MLPs' operand dtype (default: "
                    "the benchmark's bfloat16)")
+    u.add_argument("--seed", type=int, default=0,
+                   help="seed of the port's own initial weights (not read "
+                   "with --init)")
     args = parser.parse_args(argv)
 
     import torch
@@ -212,7 +216,8 @@ def main(argv=None) -> int:
     if args.cmd == "kernel":
         return kernel(os.path.abspath(args.out))
     return uniforms(args.file, os.path.abspath(args.out),
-                    args.init and os.path.abspath(args.init), args.mlp_dtype)
+                    args.init and os.path.abspath(args.init), args.mlp_dtype,
+                    args.seed)
 
 
 if __name__ == "__main__":
