@@ -88,6 +88,20 @@ other grid encodings' presets through training and the command line
               production mesh (the bake's atlas card against CPU); its
               ``view_mesh``, ``turntable`` and camera views, card against
               CPU pixel for pixel.
+13. graph  -- ``train_steps`` (the JAX package's fused K-step call) on both
+              paths at ``steps_per_call: 8``, a 32-view scene (8 steps an
+              epoch): one eager step under ``torch.cuda.set_sync_debug_mode
+              ("error")``; 8 steps from one snapshot eagerly twice and
+              through ``train_steps`` twice (a capture, then 8 replays),
+              replay against eager; three epochs of one call each with
+              exact launches (2 B1 a step default, 1 B1 + 1 B2
+              production, every one from a replay), ms/step, peak memory
+              with the graph's pool and one profiled epoch; then the
+              sync-free eager step (``steps_per_call: 1``) timed and
+              profiled beside it; then the opt-ins (coarse-grid
+              snapshot, fresh uniforms, rematerialized heads, all on) at
+              the default widths through ``train_steps`` for one epoch,
+              replay against eager.
 
 Monitor files, rendered images, environment maps, the tools' views and the
 full profiles go to ``--out`` (default ``chip_smoke_out/``); the meshes,
@@ -882,7 +896,8 @@ def render_parity_phase(torch, np, label, devices=("cpu", "cuda"),
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def make_trainer(torch, overrides=(), tag="monitor", config="default"):
+def make_trainer(torch, overrides=(), tag="monitor", config="default",
+                 views=16):
     from ndjir_torch.config import load_config
     from ndjir_torch.data.dataset import IDRDataset
     from ndjir_torch.data.synthetic import render_sphere_scene
@@ -891,7 +906,8 @@ def make_trainer(torch, overrides=(), tag="monitor", config="default"):
     conf = load_config(config, overrides=[
         "valid.skip=true", "data_path=synthetic/sphere",
         f"monitor_base_path={os.path.join(OUT_DIR, tag)}", *overrides])
-    images, masks, cameras = render_sphere_scene(n_views=16, H=128, W=128)
+    images, masks, cameras = render_sphere_scene(n_views=views, H=128,
+                                                 W=128)
     ds = IDRDataset(conf, images, masks, cameras, train=True, shuffle=True)
     return Trainer(conf, dataset=ds, device="cuda", seed=0)
 
@@ -1038,7 +1054,8 @@ def train_phase(torch, kernels, trainer, card_name, per_step):
 def profile_phase(torch, trainer, name):
     """One more epoch under ``torch.profiler``: device time by kernel and
     the device's busy share of the wall time (written in full to ``name``
-    in the output directory)."""
+    in the output directory).  Returns (wall, device busy) in ms a step,
+    busy None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1063,7 +1080,7 @@ def profile_phase(torch, trainer, name):
             sort_by="self_device_time_total", row_limit=80))
     if busy_us <= 0.0:
         log("profile", "the profiler recorded no device time: not measured")
-        return
+        return wall_us / 1e3 / steps, None
     log("profile", f"{steps} steps under the profiler: wall "
         f"{wall_us / 1e3 / steps:.1f} ms/step, device busy "
         f"{busy_us / 1e3 / steps:.1f} ms/step ({100 * busy_us / wall_us:.1f}"
@@ -1094,6 +1111,7 @@ def profile_phase(torch, trainer, name):
         log("profile", f"{100 * self_us(e) / busy_us:5.1f}% "
             f"{self_us(e) / 1e3 / steps:8.3f} ms/step x{e.count // steps:<5d}"
             f" {e.key[:90]}")
+    return wall_us / 1e3 / steps, busy_us / 1e3 / steps
 
 
 # ---------------------------------------------------------------------------
@@ -2612,6 +2630,277 @@ def tools_phase(torch, np, kernels, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: train_steps, the captured training step
+# ---------------------------------------------------------------------------
+
+# phase 13's scene: 32 views at B=4 make 8 steps an epoch, one call of
+# steps_per_call=8 (the JAX package's production dispatch, bench.py:196)
+GRAPH_VIEWS, GRAPH_SPC = 32, 8
+
+
+def state_tensors(trainer):
+    """Every tensor a training step updates in place: the parameters, both
+    moments and the step count."""
+    from ndjir_torch.train.optim import tree_leaves_with_path
+
+    o = trainer.opt_state
+    return [t for tree in (trainer.params, o["mu"], o["nu"])
+            for _, t in tree_leaves_with_path(tree)] + [o["count"]]
+
+
+def graph_schedule(trainer):
+    """(cos_anneal, lv_gain, lr_weight, lr_feat) of epoch 2, the first at
+    a learning rate above 0, as device scalars."""
+    from ndjir_torch.train.graph import device_scalars
+    from ndjir_torch.train.trainer import epoch_schedule
+
+    lr_w, lr_f, car, lvg = epoch_schedule(2, trainer.lr_w_base,
+                                          trainer.lr_f_base, trainer.conf)
+    return device_scalars((car, lvg, lr_w, lr_f), trainer.device)
+
+
+def sync_debug_step(torch, trainer, path):
+    """One eager step after a warm-up one, its batch staged, its schedule
+    made and the step run under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises at any wait on the card that torch makes."""
+    from ndjir_torch.render.sampler import make_proposal_grid
+    from ndjir_torch.train.trainer import train_step
+
+    conf = trainer.conf
+    grid = make_proposal_grid(trainer.params, conf) \
+        if trainer.coarse_grid else None
+    for debug in (False, True):
+        torch.cuda.synchronize()
+        if debug:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            sched = graph_schedule(trainer)
+            mons = train_step(trainer.params, trainer.opt_state,
+                              *trainer.next_batch(), *sched, conf,
+                              cdfs=trainer.cdfs, step=int(debug),
+                              proposal_grid=grid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    loss = mons["loss"].item()
+    if not (math.isfinite(loss) and mons["grads_finite"].item()):
+        raise AssertionError(f"{path}: the sync-debug step's loss {loss}")
+    log("graph", f"{path}: one eager step under sync debug mode 'error' "
+        f"raised nothing (loss {loss:.6g})")
+
+
+def max_diff(torch, state, ref):
+    """The largest |a - b| over the state's float tensors, as a share of
+    the largest |b| of its tensor, and whether every tensor is equal."""
+    worst, equal = 0.0, True
+    for a, b in zip(state, ref):
+        equal &= torch.equal(a, b)
+        if a.is_floating_point() and not torch.equal(a, b):
+            d = (a.float() - b.float()).abs().max().item()
+            worst = max(worst, d / max(b.float().abs().max().item(), 1e-30))
+    return worst, equal
+
+
+def replay_check(torch, trainer, path):
+    """From one snapshot of the state, 8 steps on the same staged batches:
+    twice eagerly (the run-to-run spread of the eager step), then twice
+    through ``train_steps`` (the first call warms up on its first step and
+    captures, the second replays all 8).  Replayed steps must equal the
+    eager ones bitwise where two eager runs do, else lie within twice
+    their spread.  Returns the numbers."""
+    from ndjir_torch.train.trainer import (
+        fetch_monitors,
+        train_step,
+        train_steps,
+    )
+
+    from ndjir_torch.render.sampler import make_proposal_grid
+
+    conf, graph = trainer.conf, trainer.graph
+    sched = graph_schedule(trainer)
+    batches = trainer.next_batches(GRAPH_SPC)
+    state = state_tensors(trainer)
+    start = [t.clone() for t in state]
+    # the opt-ins: one coarse-grid snapshot for all 8 steps; with fresh
+    # seeds (cdfs None) step j draws the uniforms of global step j
+    grid = make_proposal_grid(trainer.params, conf) \
+        if trainer.coarse_grid else None
+
+    def restore():
+        for t, s0 in zip(state, start):
+            t.copy_(s0)
+
+    def eager():
+        restore()
+        return fetch_monitors([train_step(
+            trainer.params, trainer.opt_state, *(b[j] for b in batches),
+            *sched, conf, cdfs=trainer.cdfs, step=j, proposal_grid=grid)
+            for j in range(GRAPH_SPC)])
+
+    def replayed():
+        restore()
+        return fetch_monitors([train_steps(
+            trainer.params, trainer.opt_state, *batches, *sched, 0, conf,
+            cdfs=trainer.cdfs, proposal_grid=grid, graph=graph)])
+
+    e1 = eager()
+    ref = [t.clone() for t in state]
+    e2 = eager()
+    spread, eager_equal = max_diff(torch, state, ref)
+    captures = graph.captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g1 = replayed()     # the warm-up step, then the capture
+    capture_peak = torch.cuda.max_memory_allocated()
+    d1, equal1 = max_diff(torch, state, ref)
+    replays = graph.replays
+    g2 = replayed()
+    d2, equal2 = max_diff(torch, state, ref)
+    if graph.captures != captures + 1 or graph.replays != replays + GRAPH_SPC:
+        raise AssertionError(f"{path}: {graph.captures - captures} captures,"
+                             f" {graph.replays - replays} replays in the "
+                             "second call")
+    losses = [[m["loss"] for m in run] for run in (e1, e2, g1, g2)]
+    if not all(m["grads_finite"] for run in (e1, e2, g1, g2) for m in run):
+        raise AssertionError(f"{path}: a step skipped in the replay check")
+    if eager_equal and e1 == e2:
+        if not (equal1 and equal2 and g1 == e1 and g2 == e1):
+            raise AssertionError(f"{path}: replayed steps differ from eager "
+                                 f"ones that repeat bitwise: state {d1:.3g}"
+                                 f" / {d2:.3g}, losses {losses}")
+        agreement = "bitwise"
+    else:
+        if max(d1, d2) > 2 * spread:
+            raise AssertionError(f"{path}: replayed steps {d1:.3g} / "
+                                 f"{d2:.3g} from eager, two eager runs "
+                                 f"{spread:.3g} apart")
+        agreement = (f"within {max(d1, d2):.3g} of the largest entry, "
+                     f"two eager runs {spread:.3g} apart")
+    del start, ref
+    log("graph", f"{path}: {GRAPH_SPC} steps from one snapshot, eager twice "
+        f"and through train_steps twice (one capture, then {GRAPH_SPC} "
+        f"replays): state and monitors {agreement}; losses eager "
+        f"{' '.join(f'{v:.9g}' for v in losses[0])}, replayed "
+        f"{' '.join(f'{v:.9g}' for v in losses[3])}; peak allocated over "
+        f"the warm-up step and the capture {capture_peak / 2 ** 30:.2f} GiB"
+        f" (two state snapshots of this check included)")
+    return agreement
+
+
+def graph_path(torch, kernels, path, overrides, card_name, per_step,
+               epochs=3, timed=True):
+    """Phase 13 for one path: the sync-debug step, the replay check, then
+    the main path (``epochs`` epochs of one ``train_steps`` call each,
+    counts set to 0 just before and read just after) and, when ``timed``,
+    one profiled epoch and the sync-free eager step (``steps_per_call:
+    1``) timed and profiled beside it.  Returns the launches of the main
+    path's run."""
+    trainer = make_trainer(torch, [*overrides,
+                                   f"train.steps_per_call={GRAPH_SPC}"],
+                           tag=f"monitor_graph_{path}", views=GRAPH_VIEWS)
+    iters = trainer.ds.iters_per_epoch
+    if iters != GRAPH_SPC:
+        raise AssertionError(f"{iters} steps an epoch, want {GRAPH_SPC}")
+    sync_debug_step(torch, trainer, path)
+    agreement = replay_check(torch, trainer, path)
+    graph = trainer.graph
+    if graph.tally != per_step:
+        raise AssertionError(f"{path}: the graph holds {graph.tally}, want "
+                             f"{per_step}")
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()    # the check's snapshots, cached
+    torch.cuda.reset_peak_memory_stats()
+    replays, captures = graph.replays, graph.captures
+    first = len(trainer.history)
+    graph_ms = []
+    kernels.reset_launches()
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        trainer.train(stop_epoch=trainer.start_epoch + 1)
+        torch.cuda.synchronize()
+        graph_ms.append(1e3 * (time.perf_counter() - t0) / iters)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    steps = epochs * iters
+    want = {k: n * steps for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, want {want}")
+    if graph.replays - replays != steps or graph.captures != captures:
+        raise AssertionError(f"{path}: {graph.replays - replays} replays and "
+                             f"{graph.captures - captures} captures in "
+                             f"{steps} steps")
+    hist = trainer.history[first:]
+    if len(hist) != steps or not all(
+            m["grads_finite"] and math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError(f"{path}: {len(hist)} steps recorded, or one "
+                             "not finite")
+    if not timed:
+        log("graph", f"{path}: {steps} steps in {epochs} call(s) of "
+            f"train_steps, launches {launches} ({steps} replays x "
+            f"{per_step}), {' '.join(f'{v:.1f}' for v in graph_ms)} "
+            f"ms/step; replay vs eager {agreement}; on {card_name}")
+        del trainer, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    graph_prof = profile_phase(torch, trainer, f"profile_graph_{path}.txt")
+
+    graph.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer.conf.train.steps_per_call = 1
+    eager_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        trainer.train(stop_epoch=trainer.start_epoch + 1)
+        torch.cuda.synchronize()
+        eager_ms.append(1e3 * (time.perf_counter() - t0) / iters)
+    eager_prof = profile_phase(torch, trainer, f"profile_eager_{path}.txt")
+
+    def idle(prof):
+        wall, busy = prof
+        return "not measured" if busy is None else \
+            f"{100 - 100 * busy / wall:.1f}% (busy {busy:.1f} of {wall:.1f})"
+    log("graph", f"{path}: {steps} steps in {epochs} calls of train_steps, "
+        f"launches {launches} ({steps} replays x {per_step}); host clock "
+        f"{' '.join(f'{v:.1f}' for v in graph_ms)} ms/step captured, "
+        f"{' '.join(f'{v:.1f}' for v in eager_ms)} eager (steps_per_call 1,"
+        f" sync-free); device idle under the profiler: captured "
+        f"{idle(graph_prof)}, eager {idle(eager_prof)} ms/step; over the "
+        f"replays peak allocated {peak / 2 ** 30:.2f} GiB (the state and "
+        f"the graph's outputs), reserved {reserved} B "
+        f"({reserved / 2 ** 30:.2f} GiB, the graph's pool included); "
+        f"replay vs eager {agreement}; on {card_name}")
+    del trainer, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the opt-ins through train_steps at the default widths, all at once: the
+# coarse-grid snapshot (a static buffer the graph reads, refreshed in place
+# at call starts), fresh uniforms every step (drawn outside the graph and
+# copied in like the batch) and rematerialized heads (the checkpoint
+# inside the capture)
+GRAPH_OPT_INS = [*COARSE, "renderer.fixed_graph_seeds=false",
+                 "train.remat_heads=true"]
+
+
+def graph_phase(torch, kernels, card_name):
+    """Phase 13: ``train_steps`` on both paths, then the opt-ins through
+    it for one epoch.  Returns their launches by path."""
+    out = {f"graph_{path}": graph_path(torch, kernels, path, overrides,
+                                       card_name, STEP_LAUNCHES[path])
+           for path, overrides in (("default", []), ("g256_bf16", OCTA))}
+    out["graph_opt_ins"] = graph_path(
+        torch, kernels, "opt_ins", GRAPH_OPT_INS, card_name,
+        STEP_LAUNCHES["default"], epochs=1, timed=False)
+    return out
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2763,10 +3052,14 @@ def main() -> int:
     opt_launches["tools_import"] = tools_phase(torch, np, kernels, smi)
     log("tools", f"done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    opt_launches.update(graph_phase(torch, kernels, card_name))
+    log("graph", f"done in {time.perf_counter() - t0:.1f} s")
+
     # main-path launches: the training steps' and the render, validation
     # and extraction calls', then each command's of the command line, then
-    # phase 11's training paths' and phase 12's step from the imported
-    # checkpoint
+    # phase 11's training paths', phase 12's step from the imported
+    # checkpoint and phase 13's captured steps
     records = [scatter_record, fold_record, build_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],

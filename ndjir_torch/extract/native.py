@@ -76,6 +76,11 @@ def get_lib() -> ctypes.CDLL:
     lib.mesh_connected_components.argtypes = [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int64, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int)]
+    lib.sample_triangles.restype = None
+    lib.sample_triangles.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_float)]
     _lib = lib
     return lib
 
@@ -117,3 +122,20 @@ def connected_components(tris: np.ndarray, n_vertices: int) -> np.ndarray:
         tris.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), len(tris),
         n_vertices, labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     return labels
+
+
+def sample_surface(verts: np.ndarray, tris: np.ndarray, n_samples: int,
+                   seed: int = 0) -> np.ndarray:
+    """Area-weighted uniform samples on the mesh surface, (n, 3) float32
+    (the library's ``sample_triangles``, the JAX package's generator and
+    seed)."""
+    lib = get_lib()
+    verts = np.ascontiguousarray(verts, np.float32)
+    tris = np.ascontiguousarray(tris, np.int32)
+    out = np.zeros((n_samples, 3), np.float32)
+    lib.sample_triangles(
+        verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        tris.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        len(tris), n_samples, seed,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out

@@ -7,8 +7,10 @@ loaded with ``ctypes``; a library whose source or flags changed is rebuilt
 (the file name carries their hash).  Nothing is built when this module is
 imported.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
-the counts and reads them back to show which kernels a path went through.
+``LAUNCHES`` counts, per kernel, the launches its wrapper made, and a replay
+of a captured training step adds the launches its capture recorded
+(:mod:`ndjir_torch.train.graph`); a run resets the counts and reads them
+back to show which kernels a path went through.
 """
 
 from __future__ import annotations

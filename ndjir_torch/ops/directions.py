@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ndjir_torch.ops.consts import device_const
+
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True),
@@ -29,8 +31,8 @@ def _tangent_frame(normal: torch.Tensor, eps: float):
     xa = torch.stack([-n[..., 1], n[..., 0], torch.zeros_like(n[..., 0])],
                      dim=-1)
     degenerate = torch.linalg.norm(xa, dim=-1, keepdim=True) < 1e-9
-    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype,
-                            device=n.device).expand_as(xa)
+    fallback = device_const((1.0, 0.0, 0.0), n.dtype,
+                            n.device).expand_as(xa)
     x_axis = _normalize(torch.where(degenerate, fallback, xa))
     y_axis = torch.linalg.cross(z_axis, x_axis, dim=-1)
     return x_axis, y_axis, z_axis

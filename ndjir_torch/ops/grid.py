@@ -48,6 +48,7 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
+from ndjir_torch.ops.consts import device_const
 from ndjir_torch.ops.fold import fold_octa_cotangent
 from ndjir_torch.ops.lattice import (
     _PLANE_AXES,
@@ -85,9 +86,9 @@ def voxel_corners(x: torch.Tensor, gshape, vmin: Vec3 = DEFAULT_MIN,
     cell corners, corner c = (cx, cy, cz) at c = 4 cx + 2 cy + cz."""
     Gx, Gy, Gz, _ = gshape
     dtype, dev = x.dtype, x.device
-    g1 = torch.tensor([Gx - 1, Gy - 1, Gz - 1], dtype=dtype, device=dev)
-    xyz = _to_grid(x, g1, torch.tensor(vmin, dtype=dtype, device=dev),
-                   torch.tensor(vmax, dtype=dtype, device=dev))
+    g1 = device_const((Gx - 1, Gy - 1, Gz - 1), dtype, dev)
+    xyz = _to_grid(x, g1, device_const(tuple(vmin), dtype, dev),
+                   device_const(tuple(vmax), dtype, dev))
     xyz0, xyz1 = _corners(xyz, g1)
     w0, w1 = _weights(xyz, xyz0, xyz1, weight)
     i0 = xyz0.detach().long()
@@ -141,9 +142,9 @@ def voxel_octa_ids(x: torch.Tensor, gshape, vmin: Vec3 = DEFAULT_MIN,
     clamped floor corner (reference grid.py:568)."""
     Gx, Gy, Gz, _ = gshape
     dtype, dev = x.dtype, x.device
-    g1 = torch.tensor([Gx - 1, Gy - 1, Gz - 1], dtype=dtype, device=dev)
-    xyz = _to_grid(x, g1, torch.tensor(vmin, dtype=dtype, device=dev),
-                   torch.tensor(vmax, dtype=dtype, device=dev))
+    g1 = device_const((Gx - 1, Gy - 1, Gz - 1), dtype, dev)
+    xyz = _to_grid(x, g1, device_const(tuple(vmin), dtype, dev),
+                   device_const(tuple(vmax), dtype, dev))
     i0 = _corners(xyz, g1)[0].detach().long()
     return i0[..., 0] * (Gy * Gz) + i0[..., 1] * Gz + i0[..., 2]
 
@@ -241,9 +242,9 @@ def voxel_interp_octa(x: torch.Tensor, f: torch.Tensor, gshape,
     grid.py:581).  Differentiable in ``x`` through the weights only."""
     Gx, Gy, Gz, D = gshape
     dtype, dev = x.dtype, x.device
-    g1 = torch.tensor([Gx - 1, Gy - 1, Gz - 1], dtype=dtype, device=dev)
-    xyz = _to_grid(x, g1, torch.tensor(vmin, dtype=dtype, device=dev),
-                   torch.tensor(vmax, dtype=dtype, device=dev))
+    g1 = device_const((Gx - 1, Gy - 1, Gz - 1), dtype, dev)
+    xyz = _to_grid(x, g1, device_const(tuple(vmin), dtype, dev),
+                   device_const(tuple(vmax), dtype, dev))
     xyz0, xyz1 = _corners(xyz, g1)
     w0, w1 = _weights(xyz, xyz0, xyz1, weight)
     fx = w0[..., 0:1] * f[..., :4 * D] + w1[..., 0:1] * f[..., 4 * D:]

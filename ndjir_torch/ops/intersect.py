@@ -11,6 +11,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ndjir_torch.ops.consts import device_const
+
 
 def ray_sphere_intersection(camloc: torch.Tensor, raydir: torch.Tensor,
                             radius: float = 1.0
@@ -57,8 +59,8 @@ def ray_aabb_intersection(camloc: torch.Tensor, raydir: torch.Tensor,
     sorted; a single hit means the camera is inside the box (t_near = 0).
     """
     dtype, dev = camloc.dtype, camloc.device
-    bmin = torch.as_tensor(box_min, dtype=dtype, device=dev)
-    bmax = torch.as_tensor(box_max, dtype=dtype, device=dev)
+    bmin = device_const(tuple(box_min), dtype, dev)
+    bmax = device_const(tuple(box_max), dtype, dev)
     c = camloc[:, None, :]  # (B, 1, 3)
     inv_d = 1.0 / raydir     # inf on axis-parallel rays, handled below
 
@@ -67,10 +69,11 @@ def ray_aabb_intersection(camloc: torch.Tensor, raydir: torch.Tensor,
     t_list = torch.cat([t_max, t_min], dim=-1)  # (B, R, 6)
 
     x = c[..., None, :] + t_list[..., :, None] * raydir[..., None, :]
-    face_axis = torch.tensor([0, 1, 2, 0, 1, 2], device=dev)
     face_value = torch.stack([bmax[0], bmax[1], bmax[2],
                               bmin[0], bmin[1], bmin[2]])
-    axis_onehot = torch.nn.functional.one_hot(face_axis, 3).to(dtype)
+    # each face's axis, one-hot
+    axis_onehot = device_const(((1, 0, 0), (0, 1, 0), (0, 0, 1)) * 2, dtype,
+                               dev)
     x = x * (1.0 - axis_onehot) + face_value[:, None] * axis_onehot
 
     inside = ((x >= bmin) & (x <= bmax)).all(dim=-1)  # (B, R, 6)

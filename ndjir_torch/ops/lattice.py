@@ -11,6 +11,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ndjir_torch.ops.consts import device_const
+
 Vec3 = Sequence[float]
 DEFAULT_MIN = (-1.0, -1.0, -1.0)
 DEFAULT_MAX = (1.0, 1.0, 1.0)
@@ -31,7 +33,7 @@ def _corners(xyz: torch.Tensor, grid_sizes1: torch.Tensor):
 
 
 def _vec(v, x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+    return device_const(tuple(v), x.dtype, x.device)
 
 
 # (xy, yz, zx): common_triplane.cuh:44-66
@@ -98,10 +100,10 @@ def _hash_levels(x: torch.Tensor, G0, growth_factor, T0, L, D, vmin, vmax):
     for off, _, _ in levels:
         assert off % D == 0, "level offset not divisible by feature dim"
     dev = x.device
-    g1s = torch.tensor([[G - 1] for _, G, _ in levels], dtype=x.dtype,
-                       device=dev)
-    Ts = torch.tensor([T for _, _, T in levels], device=dev)
-    row0s = torch.tensor([off // D for off, _, _ in levels], device=dev)
+    g1s = device_const([[G - 1] for _, G, _ in levels], x.dtype, dev)
+    Ts = device_const([T for _, _, T in levels], torch.int64, dev)
+    row0s = device_const([off // D for off, _, _ in levels], torch.int64,
+                         dev)
     scales = g1s / (_vec(vmax, x) - _vec(vmin, x))          # (L, 3)
     xyz = (x[..., None, :] - _vec(vmin, x)) * scales        # (..., L, 3)
     return xyz, g1s.expand(L, 3), Ts, row0s

@@ -44,12 +44,15 @@ from ndjir_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from ndjir_torch.train.graph import device_scalars
 from ndjir_torch.train.optim import init_optimizer, tree_leaves_with_path
 from ndjir_torch.train.trainer import (
     Trainer,
     check_supported,
     epoch_schedule,
+    fetch_monitors,
     setup_monitor_dir,
+    stage,
     train_step,
     validate_scene,
 )
@@ -88,8 +91,8 @@ def initialize_distributed(coordinator: Optional[str] = None,
 
 
 def multi_scene_train_step(params_list, opt_states, camloc, raydir, color_gt,
-                           obj_mask, cos_anneal: float, lv_gain: float,
-                           lr_weight: float, lr_feat: float, step: int, conf,
+                           obj_mask, cos_anneal, lv_gain, lr_weight,
+                           lr_feat, step: int, conf,
                            cdfs=None,
                            reducer: Optional[ShardReducer] = None
                            ) -> List[Dict[str, torch.Tensor]]:
@@ -193,7 +196,7 @@ class MultiSceneTrainer:
         names = ("params", "mu", "nu")
         out = {n: _stack_like(self._tree(0, n), S) for n in names} \
             if plan.is_main else None
-        counts = [0] * S
+        counts = torch.zeros(S, dtype=torch.int32)
         for i in range(S):
             owner = self._owner(i)
             if plan.rank not in (0, owner):
@@ -208,10 +211,9 @@ class MultiSceneTrainer:
                             dst[path][i].copy_(t.detach().cpu())
                         else:
                             dist.send(t.detach().contiguous(), 0)
-                counts[i] = self.opt_states[j]["count"]
+                counts[i] = torch.as_tensor(self.opt_states[j]["count"]).cpu()
                 if not plan.is_main:
-                    dist.send(torch.tensor([counts[i]], device=self.device),
-                              0)
+                    dist.send(counts[i:i + 1].to(self.device, torch.int64), 0)
                 continue
             for n in names:  # rank 0, another row's scene
                 for _, d in tree_leaves_with_path(out[n]):
@@ -244,7 +246,8 @@ class MultiSceneTrainer:
             return
         S = len(self.scene_paths)
         params_s = _stack_like(self.params[0], S)
-        opt_s = {"count": 0, "mu": _stack_like(self.opt_states[0]["mu"], S),
+        opt_s = {"count": torch.zeros(S, dtype=torch.int32),
+                 "mu": _stack_like(self.opt_states[0]["mu"], S),
                  "nu": _stack_like(self.opt_states[0]["nu"], S)}
         params_s, opt_s, extra = load_checkpoint(latest, params_s, opt_s)
         # same count, other scenes: a relaunch would train each scene's
@@ -256,8 +259,6 @@ class MultiSceneTrainer:
                 f"this run lists {self.scene_paths}; refusing to resume "
                 "(move monitor_base_path or match the scene list)")
         counts = opt_s["count"]
-        if not isinstance(counts, list):
-            counts = [counts] * S
         stored = dict(tree_leaves_with_path(params_s))
         mu = dict(tree_leaves_with_path(opt_s["mu"]))
         nu = dict(tree_leaves_with_path(opt_s["nu"]))
@@ -268,7 +269,7 @@ class MultiSceneTrainer:
                                   (self.opt_states[j]["nu"], nu)):
                     for path, t in tree_leaves_with_path(tree):
                         t.copy_(src[path][i])
-                self.opt_states[j]["count"] = int(counts[i])
+                self.opt_states[j]["count"].copy_(counts[i])
         self.start_epoch = int(extra.get("step", 0)) + 1
         logger.info(f"[multi-scene] resumed from {latest} at epoch "
                     f"{self.start_epoch}")
@@ -321,9 +322,9 @@ class MultiSceneTrainer:
             if i not in self.local:
                 continue
             raydir, camloc = generate_raydir_camloc(pose, intrinsic, xy)
-            for k, (a, rays) in enumerate(((camloc, False), (raydir, True),
-                                           (color, True), (mask, True))):
-                t = torch.from_numpy(a).to(self.device)
+            staged = stage((camloc, raydir, color, mask), self.device)
+            for k, (t, rays) in enumerate(zip(staged,
+                                              (False, True, True, True))):
                 out[k].append(self.plan.shard(t, data=False, rays=rays))
         return out
 
@@ -340,8 +341,9 @@ class MultiSceneTrainer:
                     and epoch % conf.valid.epoch_interval == 0
                     and not conf.valid.skip):
                 self.validate(epoch)
-            lr_w, lr_f, car, lvg = epoch_schedule(epoch, self.lr_w_base,
-                                                  self.lr_f_base, conf)
+            lr_w, lr_f, car, lvg = device_scalars(
+                epoch_schedule(epoch, self.lr_w_base, self.lr_f_base, conf),
+                self.device)
             epoch_mons = []
             for it in range(iters):
                 gstep = epoch * iters + it
@@ -351,8 +353,10 @@ class MultiSceneTrainer:
                     self.params, self.opt_states, *self.next_batch(), car,
                     lvg, lr_w, lr_f, gstep, conf, cdfs=cdfs,
                     reducer=reducer))
-            for it, mons in enumerate(epoch_mons):
-                mons = [{k: v.item() for k, v in m.items()} for m in mons]
+            n = len(self.local)
+            flat = fetch_monitors([m for mons in epoch_mons for m in mons])
+            for it in range(len(epoch_mons)):
+                mons = flat[it * n:(it + 1) * n]
                 self.history.append(mons)
                 if not self.writes:
                     continue

@@ -56,8 +56,8 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
     if reduce_counts is not None:
         n_obj, n_mask, n_rays = reduce_counts(torch.stack([
             n_obj, n_mask.to(n_obj.dtype),
-            torch.tensor(float(n_rays), dtype=n_obj.dtype,
-                         device=n_obj.device)])).unbind()
+            torch.full((), float(n_rays), dtype=n_obj.dtype,
+                       device=n_obj.device)])).unbind()
 
     # RGB (loss.py:59-66)
     err = torch.abs(res["color_pixel"] - color_gt) if tr.rgb_loss == "l1" \

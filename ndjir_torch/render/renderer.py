@@ -138,7 +138,10 @@ def _heads(conf):
     network, would cut that double backward."""
     if not conf.train.get("remat_heads", False):
         return _HEADS
-    return {k: partial(checkpoint, f, use_reentrant=False)
+    # the heads draw no random numbers, so the RNG state need not be kept
+    # (reading it is not allowed while a CUDA graph is captured)
+    return {k: partial(checkpoint, f, use_reentrant=False,
+                       preserve_rng_state=False)
             for k, f in _HEADS.items()}
 
 
@@ -146,7 +149,8 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
               cos_anneal_ratio, lv_gain, cdfs, conf) -> Dict[str, torch.Tensor]:
     """Render a batch of rays to pixel radiance + auxiliary loss terms
     (reference renderer.py:32-209).  ``cos_anneal_ratio`` and ``lv_gain``
-    are the epoch schedules' scalars, ``cdfs`` from :func:`make_mc_cdfs`."""
+    are the epoch schedules' scalars, floats or 0-dim f32 tensors (no
+    branch reads their values), ``cdfs`` from :func:`make_mc_cdfs`."""
     h = _heads(conf)
     B, R, N, _ = x_fg.shape
     raydir_r = raydir.reshape(B, R, 1, 3)
@@ -179,8 +183,12 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
                                    tv_sym=conf.train.tv_sym_backward,
                                    corners=corners_fg)
 
-    # NeuS section-based alpha with annealed iter_cos (renderer.py:55-67)
+    # NeuS section-based alpha with annealed iter_cos (renderer.py:55-67);
+    # a float ratio is first rounded to f32, so that 1 - car rounds as it
+    # does from the 0-dim f32 tensor the trainer passes
     car = cos_anneal_ratio
+    if not torch.is_tensor(car):
+        car = torch.tensor(float(car), dtype=torch.float32).item()
     true_cos = torch.sum(raydir_r * grad_x_fg, dim=-1, keepdim=True)
     iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - car)
                  + torch.relu(-true_cos) * car)  # always non-positive

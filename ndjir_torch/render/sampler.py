@@ -28,11 +28,53 @@ from ndjir_torch.ops.intersect import (
 )
 
 
-def _exclusive_cumprod(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """cumprod with exclusive semantics (first element = 1)."""
+def _exclusive_cumprod_plain(x: torch.Tensor, dim: int) -> torch.Tensor:
     cp = torch.cumprod(x, dim=dim)
     one = torch.ones_like(cp.narrow(dim, 0, 1))
     return torch.cat([one, cp.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
+
+
+def _shift_down(t: torch.Tensor, d: int, dim: int) -> torch.Tensor:
+    """t[k + d] at k along ``dim``, 0 past the end."""
+    n = t.shape[dim]
+    if d >= n:
+        return torch.zeros_like(t)
+    return torch.cat([t.narrow(dim, d, n - d),
+                      torch.zeros_like(t.narrow(dim, 0, d))], dim=dim)
+
+
+class _ExclusiveCumprod(torch.autograd.Function):
+    """y_i = prod_{j<i} x_j along ``dim``.  Its backward is
+    dL/dx_k = y_k * S_k with S_k = sum_{i>k} g_i prod_{k<j<i} x_j, the
+    reverse recurrence S_k = g_{k+1} + x_{k+1} S_{k+1} taken by pointer
+    doubling: exact where x holds zeros, without a division and without
+    the host read that torch's cumprod backward makes to look for zeros
+    (a wait on the card, which a CUDA graph cannot capture).  The backward
+    is built of differentiable ops."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        y = _exclusive_cumprod_plain(x, dim)
+        ctx.save_for_backward(x, y)
+        ctx.dim = dim
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        dim = ctx.dim
+        a, s = _shift_down(x, 1, dim), _shift_down(g, 1, dim)
+        d = 1
+        while d < x.shape[dim]:
+            s = s + a * _shift_down(s, d, dim)
+            a = a * _shift_down(a, d, dim)
+            d *= 2
+        return y * s, None
+
+
+def _exclusive_cumprod(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """cumprod with exclusive semantics (first element = 1)."""
+    return _ExclusiveCumprod.apply(x, dim % x.ndim)
 
 
 def t_near_far(camloc: torch.Tensor, raydir: torch.Tensor, conf):

@@ -16,7 +16,7 @@ written sorted, as a JAX dict tree orders them.  An array of more than
 2^30 bytes is split into chunks the way flax splits it
 (``__msgpack_chunked_array__``).
 
-The port's optimizer state ``{"count": int, "mu": tree, "nu": tree}``
+The port's optimizer state ``{"count": int32 tensor, "mu": tree, "nu": tree}``
 (:func:`ndjir_torch.train.optim.init_optimizer`) is stored as
 ``{"adam": {"count": int32 scalar, "mu": ..., "nu": ...}}``, the layout flax
 gives the JAX package's named tuples.
@@ -290,6 +290,12 @@ def _restore(template, stored, path=()):
     return template
 
 
+def _host(count):
+    """A step count (an int, a list of them, or a tensor on any device)
+    as host data."""
+    return count.detach().cpu() if torch.is_tensor(count) else count
+
+
 def save_checkpoint(path: str, step: int, params, opt_state=None,
                     extra: Optional[Dict[str, Any]] = None,
                     keep: int = 3) -> str:
@@ -298,7 +304,8 @@ def save_checkpoint(path: str, step: int, params, opt_state=None,
     state = {"params": _leaves(params)}
     if opt_state is not None:
         state["opt_state"] = {"adam": {
-            "count": _Leaf.of(np.asarray(opt_state["count"], np.int32)),
+            "count": _Leaf.of(np.asarray(_host(opt_state["count"]),
+                                         np.int32)),
             "mu": _leaves(opt_state["mu"]),
             "nu": _leaves(opt_state["nu"])}}
     pieces: List[bytes] = []
@@ -333,9 +340,10 @@ def load_checkpoint(fpath: str, params_template, opt_state_template=None
                     ) -> Tuple[Any, Any, Dict[str, Any]]:
     """Restore (params, opt_state, manifest-extra) onto templates: the
     stored values are copied into the templates' tensors, in place, so
-    they keep their dtypes and devices; the optimizer's step count is
-    set in ``opt_state_template`` (a list of counts, one per scene, for a
-    multi-scene checkpoint's stacked state)."""
+    they keep their dtypes and devices.  The optimizer's step count is
+    copied into the template's count tensor in place (an (S,) tensor for a
+    multi-scene checkpoint's stacked counts); a template whose count is an
+    int gets an int, or a list of counts, one per scene."""
     with open(fpath, "rb") as f:
         buf = bytearray(os.fstat(f.fileno()).st_size)
         f.readinto(buf)
@@ -348,9 +356,19 @@ def load_checkpoint(fpath: str, params_template, opt_state_template=None
         _restore(opt_state["mu"], adam["mu"], ("opt_state", "mu"))
         _restore(opt_state["nu"], adam["nu"], ("opt_state", "nu"))
         count = _tensor(adam["count"])
-        # a multi-scene checkpoint stacks one count per scene
-        opt_state["count"] = int(count) if count.dim() == 0 \
-            else count.tolist()
+        template = opt_state["count"]
+        if torch.is_tensor(template):
+            # in place, so a captured step keeps reading it; a multi-scene
+            # checkpoint's (S,) counts go into an (S,) template
+            if count.dim() > template.dim():
+                raise ValueError(f"opt_state/count: checkpoint holds "
+                                 f"{tuple(count.shape)}, the template "
+                                 f"{tuple(template.shape)}")
+            template.copy_(count)
+        else:
+            # a multi-scene checkpoint stacks one count per scene
+            opt_state["count"] = int(count) if count.dim() == 0 \
+                else count.tolist()
     meta_path = fpath.replace(".msgpack", ".json")
     extra = {}
     step = 0

@@ -15,13 +15,20 @@ non-finite gradient skipping params, moments and the step count alike
 (reference: train.py:141-146).  The update is computed in f32 and rounded
 once into the parameter's dtype, so a bf16 grid table (G=256: 134 MB) keeps
 f32 moments and takes one rounding per step (reference optim.py:93-98).
-Parameters and moments are updated in place: at G=512 each table-sized f32
-temporary is 2.1 GB.
+
+The skip is decided on the device, as in the JAX package: the finite flag
+is never read on the host, so a step queues without waiting on the card and
+can be captured in a CUDA graph.  The step count is a device int32 scalar
+and the bias correction is computed from it in f32.  Parameters and
+moments are updated in place, a leaf's update holding one f32 scratch
+beside its gradient (a bf16 leaf also its f32 gradient): at G=512 each
+table-sized f32 temporary is 2.1 GB.  A skip selects instead of
+branching: the gradient is masked to -0.0 and the moments' decay to 1,
+and the step to +0.0, so every value stays bitwise what it was.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Iterator, Tuple
 
 import torch
@@ -47,21 +54,34 @@ def tree_map(fn, tree):
 
 
 def init_optimizer(params) -> Dict[str, Any]:
-    """{"count": steps taken, "mu": f32 first moments, "nu": f32 second}."""
+    """{"count": steps taken (a 0-dim int32 tensor on the parameters'
+    device), "mu": f32 first moments, "nu": f32 second}."""
     def f32_zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return {"count": 0, "mu": tree_map(f32_zeros, params),
+    device = next(p for _, p in tree_leaves_with_path(params)).device
+    return {"count": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": tree_map(f32_zeros, params),
             "nu": tree_map(f32_zeros, params)}
 
 
+def bias_correction(count: torch.Tensor) -> torch.Tensor:
+    """sqrt(1 - b2^t) / (1 - b1^t) at t = count + 1, in f32 (reference
+    ndjir_tpu/train/optim.py:90-91)."""
+    tf = (count + 1).to(torch.float32)
+    return torch.sqrt(1.0 - torch.pow(_B2, tf)) / (1.0 - torch.pow(_B1, tf))
+
+
 @torch.no_grad()
-def apply_updates(params, grads, state, lr_weight: float, lr_feat: float,
-                  conf, group=None) -> bool:
+def apply_updates(params, grads, state, lr_weight, lr_feat, conf,
+                  group=None) -> torch.Tensor:
     """One optimizer step, in place on ``params`` and ``state``.  ``grads``
-    mirrors ``params`` and is consumed (overwritten).  Returns whether the
-    gradients were finite (the step was taken).  With a process ``group``
-    (a sharded step, its gradients already summed) the flag is the AND over
-    the group's ranks, so all of them skip a step together."""
+    mirrors ``params`` and is consumed (overwritten); ``lr_weight`` and
+    ``lr_feat`` are floats or 0-dim f32 tensors.  Returns whether the
+    gradients were finite, as a 0-dim bool tensor on the device, never
+    read here: a non-finite step leaves the parameters, both moments and
+    the count bitwise unchanged.  With a process ``group`` (a sharded
+    step, its gradients already summed) the flag is the AND over the
+    group's ranks, so all of them skip a step together."""
     wd = conf.train.weight_decay
     leaves = list(tree_leaves_with_path(params))
     g_leaves = dict(tree_leaves_with_path(grads))
@@ -81,26 +101,37 @@ def apply_updates(params, grads, state, lr_weight: float, lr_feat: float,
 
     finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
     if group is not None:
-        finite = finite.to(torch.int32)
-        torch.distributed.all_reduce(finite, torch.distributed.ReduceOp.MIN,
+        flag = finite.to(torch.int32)
+        torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MIN,
                                      group=group)
-    if not bool(finite):
-        return False
+        finite = flag.bool()
 
-    t = state["count"] + 1
-    bias = math.sqrt(1.0 - _B2 ** t) / (1.0 - _B1 ** t)
+    count = state["count"]
+    bias = bias_correction(count)
+    # a skipped step multiplies the moments by 1 and adds -0.0 (the masked
+    # gradient), which leaves every value as it was, -0.0 included
+    skip = ~finite
+    keep_m = torch.where(finite, _B1, 1.0)
+    keep_v = torch.where(finite, _B2, 1.0)
     mu = dict(tree_leaves_with_path(state["mu"]))
     nu = dict(tree_leaves_with_path(state["nu"]))
     for g, (path, p) in zip(gs, leaves):
         m, v = mu[path], nu[path]
-        g32 = g.float()
-        m.mul_(_B1).add_(g32, alpha=1 - _B1)
-        v.mul_(_B2).add_(g32 * g32, alpha=1 - _B2)
+        g32 = g.float()     # the gradient itself when it is f32
+        g32.masked_fill_(skip, -0.0)
+        m.mul_(keep_m).add_(g32, alpha=1 - _B1)
+        v.mul_(keep_v).addcmul_(g32, g32, value=1 - _B2)
+        del g32
         lr = lr_feat if is_grid_feature_path(path) else lr_weight
-        step = (m / v.sqrt().add_(_EPS)).mul_(lr * bias)
+        step = torch.sqrt(v)
+        step.add_(_EPS)
+        torch.div(m, step, out=step)
+        step.mul_(lr * bias)
+        step.masked_fill_(skip, 0.0)    # p - (+0.0) is p
         if p.dtype == torch.float32:
             p.sub_(step)
-        else:
-            p.copy_(p.float() - step)
-    state["count"] = t
-    return True
+        else:   # one rounding of p - step, as p + (-step)
+            p.copy_(step.neg_().add_(p))
+        del step
+    count.add_(finite.to(count.dtype))
+    return finite

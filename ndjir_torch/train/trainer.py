@@ -13,9 +13,17 @@ The opt-ins run as in the JAX package: fresh Monte-Carlo uniforms every
 step (``renderer.fixed_graph_seeds: false``), the coarse-grid proposal and
 its refresh cadence, rematerialized heads; ``parallel.mesh_shape`` other
 than ``[1, 1]`` shards each batch over the ranks of ``torch.distributed``
-(:mod:`ndjir_torch.parallel.mesh`).  ``train.steps_per_call`` groups steps
-as the JAX package's scan does (which sets the refresh points) but runs
-them as a plain loop of calls.
+(:mod:`ndjir_torch.parallel.mesh`).
+
+:func:`train_steps` is the JAX package's fused K-step call: on the card the
+replays of one captured step (:mod:`ndjir_torch.train.graph`), on the CPU
+the same step as a loop.  ``Trainer.train`` calls it for every call of
+``train.steps_per_call`` steps (k > 1; the sharded step keeps the per-step
+loop) after staging the call's K batches in one copy, and runs
+``train_step`` eagerly at ``steps_per_call: 1``.  Neither waits on the
+card: the non-finite skip is a select on the device, the schedule scalars
+are device tensors, and the monitors stay on the device until one fetch at
+the end of the epoch.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from ndjir_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from ndjir_torch.train.graph import CapturedStep, device_scalars
 from ndjir_torch.train.optim import (
     apply_updates,
     init_optimizer,
@@ -61,7 +70,7 @@ from ndjir_torch.utils.monitor import (
 
 
 def loss_and_grads(params, camloc, raydir, color_gt, obj_mask,
-                   cos_anneal: float, lv_gain: float, conf, cdfs=None,
+                   cos_anneal, lv_gain, conf, cdfs=None,
                    step=None, proposal_grid=None, reduce_counts=None):
     """(loss, detached monitors, grads): ``total_loss`` and its gradient
     with respect to every parameter leaf, as a tree shaped like
@@ -91,14 +100,15 @@ def loss_and_grads(params, camloc, raydir, color_gt, obj_mask,
 
 
 def train_step(params, opt_state, camloc, raydir, color_gt, obj_mask,
-               cos_anneal: float, lv_gain: float, lr_weight: float,
-               lr_feat: float, conf, cdfs=None, step=None,
-               proposal_grid=None,
+               cos_anneal, lv_gain, lr_weight, lr_feat, conf, cdfs=None,
+               step=None, proposal_grid=None,
                reducer: Optional[ShardReducer] = None
                ) -> Dict[str, torch.Tensor]:
-    """One training step, updating ``params`` and ``opt_state`` in place.
-    Returns the loss monitors plus ``grads_finite`` (False when a
-    non-finite gradient skipped the update).  ``step`` is the global step
+    """One training step, updating ``params`` and ``opt_state`` in place,
+    without waiting on the card.  The four schedule scalars are floats or
+    0-dim f32 tensors.  Returns the loss monitors plus ``grads_finite``
+    (False when a non-finite gradient skipped the update), all 0-dim
+    tensors on the device.  ``step`` is the global step
     (fresh Monte-Carlo seeds fold it in when ``cdfs`` is None);
     ``proposal_grid`` the coarse-grid snapshot.  With a ``reducer`` the
     batch and ``cdfs`` are this rank's shard: the loss's counts and then
@@ -113,10 +123,79 @@ def train_step(params, opt_state, camloc, raydir, color_gt, obj_mask,
         grads = reducer.grads(grads)
         monitors = reducer.monitors(monitors)
         group = reducer.group
-    finite = apply_updates(params, grads, opt_state, lr_weight, lr_feat, conf,
-                           group=group)
-    monitors["grads_finite"] = torch.tensor(finite)
+    monitors["grads_finite"] = apply_updates(
+        params, grads, opt_state, lr_weight, lr_feat, conf, group=group)
     return monitors
+
+
+def train_steps(params, opt_state, camloc, raydir, color_gt, obj_mask,
+                cos_anneal, lv_gain, lr_weight, lr_feat, step0, conf,
+                cdfs=None, proposal_grid=None,
+                graph: Optional[CapturedStep] = None
+                ) -> Dict[str, torch.Tensor]:
+    """K training steps in one call (the JAX package's ``train_steps``,
+    ndjir_tpu/train/trainer.py:62-95): the batch arrays carry a leading K
+    axis, the schedule scalars, ``cdfs`` and ``proposal_grid`` are shared
+    by the K steps, and step j is global step ``step0 + j`` (with
+    ``cdfs`` None, its fresh uniforms are ``make_mc_cdfs(..., step0 +
+    j)``).  Updates ``params`` and ``opt_state`` in place and returns the
+    monitors stacked along K.
+
+    On a CUDA device the steps are replays of one captured ``train_step``
+    (``graph``, a :class:`~ndjir_torch.train.graph.CapturedStep` kept by
+    the caller across calls; a new one, captured for this call alone, when
+    None).  On the CPU the same step runs as a loop."""
+    K = camloc.shape[0]
+    B, R = color_gt.shape[1:3]
+    step0 = int(step0)
+
+    def draw(j):
+        return make_mc_cdfs(conf, B, R, step=step0 + j,
+                            dtype=color_gt.dtype, device=color_gt.device)
+
+    if camloc.is_cuda:
+        graph = graph if graph is not None else CapturedStep(train_step,
+                                                             conf)
+        return graph.run(params, opt_state, camloc, raydir, color_gt,
+                         obj_mask, (cos_anneal, lv_gain, lr_weight, lr_feat),
+                         cdfs, proposal_grid,
+                         step_cdfs=None if cdfs is not None else draw)
+    mons = [train_step(params, opt_state, camloc[j], raydir[j], color_gt[j],
+                       obj_mask[j], cos_anneal, lv_gain, lr_weight, lr_feat,
+                       conf, cdfs=cdfs if cdfs is not None else draw(j),
+                       step=step0 + j, proposal_grid=proposal_grid)
+            for j in range(K)]
+    return {k: torch.stack([m[k] for m in mons]) for k in mons[0]}
+
+
+def stage(arrays, device) -> list:
+    """numpy float32 arrays as tensors on ``device``, all in one copy from
+    pinned memory that does not wait on the card (on the CPU, the arrays'
+    own memory)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    flat = np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                           for a in arrays])
+    buf = torch.from_numpy(flat).pin_memory().to(device, non_blocking=True)
+    out, off = [], 0
+    for a in arrays:
+        out.append(buf[off:off + a.size].view(a.shape))
+        off += a.size
+    return out
+
+
+def fetch_monitors(mons) -> list:
+    """Per step, {monitor: Python value}, from a list whose entries are one
+    step's monitors (0-dim tensors) or a call's (stacked along K): one
+    transfer from the device for all of them."""
+    if not mons:
+        return []
+    names = list(mons[0])
+    cols = torch.stack([torch.cat([m[k].float().reshape(-1) for m in mons])
+                        for k in names]).cpu()
+    return [{k: bool(v) if k == "grads_finite" else float(v)
+             for k, v in zip(names, row)} for row in cols.t().tolist()]
 
 
 def _is_dtu_data(data_path: str) -> bool:
@@ -127,8 +206,7 @@ def _is_dtu_data(data_path: str) -> bool:
 
 def check_supported(conf) -> None:
     """Refuse, before any work, what the port does not run: a grid
-    encoding it does not know.  (``train.steps_per_call`` runs, as a plain
-    loop; a CUDA graph over it is later work.)"""
+    encoding it does not know."""
     GridEncoding(conf.geometric_network.voxel)  # raises for an unknown type
 
 
@@ -266,6 +344,8 @@ class Trainer:
         self.proposal_grid = None
         self.start_epoch = 0
         self.history = []  # per step: {monitor name: value}
+        # the captured step of train_steps on the card, kept across calls
+        self.graph = CapturedStep(train_step, conf)
         self._maybe_resume()
         if not self.plan.is_trivial:
             self.plan.broadcast(self.params)
@@ -295,13 +375,21 @@ class Trainer:
         validate_scene(self.params, self.conf, self.ds, self.monitor_path,
                        self.monitor_psnr, self.monitor_image, epoch, final)
 
-    def next_batch(self):
-        """One training batch on the device: (camloc, raydir, color, mask)."""
+    def _host_batch(self):
         B = self.conf.train.batch_size
         color, mask, intrinsic, pose, xy = self.ds.next_batch(B)
         raydir, camloc = generate_raydir_camloc(pose, intrinsic, xy)
-        return [torch.from_numpy(a).to(self.device)
-                for a in (camloc, raydir, color, mask)]
+        return camloc, raydir, color, mask
+
+    def next_batch(self):
+        """One training batch on the device: (camloc, raydir, color, mask)."""
+        return stage(self._host_batch(), self.device)
+
+    def next_batches(self, k: int):
+        """The next ``k`` training batches on the device, stacked (k, ...)
+        and staged in one copy, as the JAX trainer stages a call's."""
+        bs = [self._host_batch() for _ in range(k)]
+        return stage([np.stack(a) for a in zip(*bs)], self.device)
 
     def step_cdfs(self, gstep: int):
         """This rank's Monte-Carlo uniforms for global step ``gstep``."""
@@ -321,7 +409,9 @@ class Trainer:
         validation.  Under the coarse-grid proposal the snapshot is rebuilt
         from the parameters at the start of every global step that is a
         multiple of ``renderer.proposal_refresh_interval`` and starts a
-        call (:func:`call_chunks`), as in the JAX package."""
+        call (:func:`call_chunks`), as in the JAX package.  A call of k > 1
+        steps goes through :func:`train_steps` (the captured step on the
+        card), unless the step is sharded."""
         conf = self.conf
         E = conf.train.epoch
         stop = E if stop_epoch is None else min(stop_epoch, E)
@@ -335,14 +425,21 @@ class Trainer:
                     and not conf.valid.skip and main):
                 self.validate(epoch)
 
-            lr_w, lr_f, car, lvg = epoch_schedule(epoch, self.lr_w_base,
-                                                  self.lr_f_base, conf)
+            lr_w, lr_f, car, lvg = device_scalars(
+                epoch_schedule(epoch, self.lr_w_base, self.lr_f_base, conf),
+                self.device)
             epoch_mons = []
             for it0, k in call_chunks(conf, iters):
                 g0 = epoch * iters + it0
                 if self.coarse_grid and g0 % refresh_interval(conf) == 0:
                     self.proposal_grid = make_proposal_grid(self.params,
                                                             conf)
+                if k > 1 and reducer is None:
+                    epoch_mons.append(train_steps(
+                        self.params, self.opt_state, *self.next_batches(k),
+                        car, lvg, lr_w, lr_f, g0, conf, cdfs=self.cdfs,
+                        proposal_grid=self.proposal_grid, graph=self.graph))
+                    continue
                 for j in range(k):
                     batch = self.plan.shard_batch(*self.next_batch())
                     epoch_mons.append(train_step(
@@ -350,8 +447,7 @@ class Trainer:
                         lr_f, conf, cdfs=self.step_cdfs(g0 + j), step=g0 + j,
                         proposal_grid=self.proposal_grid, reducer=reducer))
 
-            for it, m in enumerate(epoch_mons):
-                m = {k: v.item() for k, v in m.items()}
+            for it, m in enumerate(fetch_monitors(epoch_mons)):
                 self.history.append(m)
                 if not main:
                     continue
@@ -363,7 +459,7 @@ class Trainer:
                                 f"{it} (update skipped)")
             if main:
                 mean_loss = float(np.mean([m["loss"] for m in
-                                           self.history[-len(epoch_mons):]]))
+                                           self.history[-iters:]]))
                 logger.info(f"epoch {epoch}: loss={mean_loss:.6g}")
                 self.monitor_time.add(epoch)
                 if every > 0 and (epoch + 1) % every == 0:

@@ -144,6 +144,9 @@ def make_trainer(work: str, scene_kind: str, seed: int = 0,
         "valid.skip=true",
         f"train.checkpoint_interval_epochs={CHUNK}",
         "train.keep_checkpoints=2",
+        # the JAX package's fused dispatch (scripts/quality_benchmark.py:
+        # 119): on the card, replays of one captured step
+        "train.steps_per_call=8",
         *overrides,
     ])
     return Trainer(conf, device=device, seed=seed)

@@ -261,6 +261,22 @@ def test_trimmed_and_largest_components_match(ref):
     assert mc.trimmed_component_meshes(verts, tris, none) == []
 
 
+def test_sample_surface_is_the_references(ref):
+    """Area-weighted surface samples of the reference's mesh: the port's
+    copy of the mesh library's ``sample_triangles`` draws the JAX
+    package's points bitwise, for two seeds."""
+    from ndjir_torch.extract import native
+    r = ref["f32"]
+    for seed in (0, 7):
+        got = native.sample_surface(r["verts"], r["tris"], 5000, seed=seed)
+        want = jnative.sample_surface(r["verts"], r["tris"], 5000,
+                                      seed=seed)
+        assert got.shape == (5000, 3) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, native.sample_surface(
+        r["verts"], r["tris"], 5000, seed=0))
+
+
 @pytest.mark.parametrize("colors", ["rgb", "one_channel", "none"])
 def test_obj_files_are_textually_equal(ref, colors, tmp_path):
     r = ref["f32"]
