@@ -17,7 +17,9 @@ other grid encodings' presets through training and the command line
               parallel), and the native mesh library with ``g++``.
 3. kernels -- each kernel's wrapper against its plain PyTorch version on the
               card: at the shapes each path gives it and at edge cases;
-              error, run-to-run repeatability, times and the bound.
+              error, run-to-run repeatability, times and the bound; and
+              the softplus first derivative's one-pass jiterator kernel
+              against its plain version, bitwise.
 4. parity  -- a small training loss and every parameter gradient on the card
               against the same computation on the CPU (the plain versions,
               which the CPU tests hold against the JAX reference), at f32
@@ -71,11 +73,18 @@ other grid encodings' presets through training and the command line
               ``remat_heads`` against one without (loss, gradients, ms,
               the step's peak memory); three epochs with fresh
               Monte-Carlo uniforms every step; a two-scene
-              ``MultiSceneTrainer`` (three epochs, exactly 4 B1 a step, ms
-              per scene-step, peak memory, its stacked checkpoint resumed
-              bitwise); ``initialize_distributed`` over NCCL at world size
-              1 and the sharded step's collectives on that group against
-              the plain step.
+              ``MultiSceneTrainer`` whose iteration is one replay of a CUDA
+              graph holding both scenes' steps (replays against eager
+              iterations from one snapshot; three epochs with exactly 4 B1
+              an iteration, all from replays; its stacked checkpoint
+              resumed bitwise; ms per scene-step by the host clock around
+              synchronized epochs, peak and reserved memory and the idle
+              share, captured and eager); ``initialize_distributed`` over
+              NCCL at world size 1, the sharded step's collectives on that
+              group against the plain step, then the sharded
+              ``train_steps`` at K=8 with its collectives in the captured
+              graph (replays against eager sharded steps, exact captures,
+              replays and launches, host ms/step, the idle share).
 12. tools  -- the capture-to-DCC tools at a scan's sizes, inside one
               ``utils.profiling.trace`` with one ``annotate`` per tool:
               ``normalize_cameras`` of phase 9's 49-view 1600x1200 folder
@@ -649,6 +658,45 @@ def build_edge_cases(torch, octa_build):
             check_build(torch, octa_build, "edge", base)
 
 
+def softplus_grad_check(torch, card_name):
+    """The softplus first derivative's one-pass elementwise kernel (a
+    PyTorch jiterator kernel; it replaces no TPU kernel) against its plain
+    version (the fused op's backward, then the zeros written in a second
+    pass) at one geometric hidden layer's shape of the default step
+    (B x R x 128 samples x 256 units), f32 and bf16, beta 100, with exact
+    zeros, values across the threshold, NaN and infinities: bitwise, and
+    both timed."""
+    from ndjir_torch.ops import activations
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    shape = (MAIN_N // 8, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(shape, generator=gen, device=dev) * 0.1).to(dtype)
+        flat = x.view(-1)
+        flat[:4096] = 0.0
+        flat[4096:4160] = torch.linspace(0.199, 0.201, 64, device=dev)
+        flat[4160:4164] = torch.tensor([float("nan"), float("inf"),
+                                        -float("inf"), -0.0], device=dev)
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        got = activations._softplus_grad(g, x, 100.0)
+        want = activations._softplus_grad_plain(g, x, 100.0)
+        if not torch.equal(got.float().view(torch.int32),
+                           want.float().view(torch.int32)):
+            raise AssertionError(f"softplus grad kernel {dtype} differs "
+                                 "from its plain version")
+        ms = cuda_ms(torch, lambda: activations._softplus_grad(g, x, 100.0))
+        plain = cuda_ms(torch,
+                        lambda: activations._softplus_grad_plain(g, x, 100.0))
+        fused = cuda_ms(torch, lambda: torch.ops.aten.softplus_backward(
+            g, x, 100.0, 20.0))
+        log("kernels", f"softplus grad {tuple(shape)} {dtype}: one-pass "
+            f"kernel bitwise its plain version; {ms:.4f} ms (plain, two "
+            f"passes {plain:.4f}; the fused op's backward alone, 1/2 at 0, "
+            f"{fused:.4f}) on {card_name}")
+
+
 def build_main_shape(torch, octa_build, grid, base, octa_ids, card_name):
     """At the inference shape, on the production path's trained table:
     the kernel against the plain version and one ``index_select`` that
@@ -1051,21 +1099,25 @@ def train_phase(torch, kernels, trainer, card_name, per_step):
     return launches, epoch_ms, peak
 
 
-def profile_phase(torch, trainer, name):
-    """One more epoch under ``torch.profiler``: device time by kernel and
-    the device's busy share of the wall time (written in full to ``name``
-    in the output directory).  Returns (wall, device busy) in ms a step,
-    busy None when the profiler saw no device time."""
+def profile_phase(torch, trainer, name, run=None, steps=None):
+    """One more epoch of ``trainer`` (or ``run()``, ``steps`` steps) under
+    ``torch.profiler``: device time by kernel and the device's busy share
+    of the wall time (written in full to ``name`` in the output
+    directory).  Returns (wall, device busy) in ms a step, busy None when
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    if run is None:
+        def run():
+            trainer.train(stop_epoch=trainer.start_epoch + 1)
+        steps = trainer.ds.iters_per_epoch
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train(stop_epoch=trainer.start_epoch + 1)
+        run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    steps = trainer.ds.iters_per_epoch
 
     def self_us(e):
         return e.self_device_time_total
@@ -2014,16 +2066,117 @@ def fresh_seeds_phase(torch, kernels, card_name):
     return launches, ms
 
 
+def _scene_states(mt):
+    """Every tensor a multi-scene iteration updates in place."""
+    from ndjir_torch.train.optim import tree_leaves_with_path
+
+    return [t for p, o in zip(mt.params, mt.opt_states)
+            for tree in (p, o["mu"], o["nu"])
+            for _, t in tree_leaves_with_path(tree)] \
+        + [o["count"] for o in mt.opt_states]
+
+
+def multi_replay_check(torch, mt):
+    """From one snapshot of both scenes' states, one epoch's iterations on
+    the same staged batches twice eagerly
+    (``multi_scene_train_step``), then twice through the trainer's graph
+    (the first call warms up and captures, every later one replays).
+    Replays must equal the eager iterations bitwise where two eager runs
+    do, else lie within twice their spread.  Restores the snapshot.
+    Returns the agreement."""
+    from ndjir_torch.parallel.multi_scene import multi_scene_train_step
+    from ndjir_torch.train.trainer import fetch_monitors
+
+    conf, graph = mt.conf, mt.graph
+    sched = graph_schedule(mt)
+    car, lvg, lr_w, lr_f = sched
+    iters = min(ds.iters_per_epoch for ds in mt.datasets)
+    batches = [mt.next_batch() for _ in range(iters)]
+    state = _scene_states(mt)
+    start = [t.clone() for t in state]
+
+    def restore(src):
+        for t, s0 in zip(state, src):
+            t.copy_(s0)
+
+    def eager():
+        restore(start)
+        return fetch_monitors([m for j, b in enumerate(batches)
+                               for m in multi_scene_train_step(
+                                   mt.params, mt.opt_states, *b, car, lvg,
+                                   lr_w, lr_f, j, conf, cdfs=mt.cdfs)])
+
+    def replayed():
+        restore(start)
+        return fetch_monitors([m for b in batches for m in graph.run(
+            list(zip(mt.params, mt.opt_states)),
+            [[t.unsqueeze(0) for t in scene] for scene in zip(*b)],
+            sched, mt.cdfs)])
+
+    e1 = eager()
+    ref = [t.clone() for t in state]
+    e2 = eager()
+    spread, eager_equal = max_diff(torch, state, ref)
+    captures = graph.captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g1 = replayed()
+    capture_peak = torch.cuda.max_memory_allocated()
+    d1, equal1 = max_diff(torch, state, ref)
+    replays = graph.replays
+    g2 = replayed()
+    d2, equal2 = max_diff(torch, state, ref)
+    if graph.captures != captures + 1 or graph.replays != replays + iters:
+        raise AssertionError(f"multi-scene: {graph.captures - captures} "
+                             f"captures, {graph.replays - replays} replays "
+                             "in the second pass")
+    runs = (e1, e2, g1, g2)
+    if not all(m["grads_finite"] for run in runs for m in run):
+        raise AssertionError("multi-scene: a step skipped in the replay "
+                             "check")
+    if eager_equal and e1 == e2:
+        if not (equal1 and equal2 and g1 == e1 and g2 == e1):
+            raise AssertionError(f"multi-scene: replays differ from eager "
+                                 f"iterations that repeat bitwise: state "
+                                 f"{d1:.3g} / {d2:.3g}")
+        agreement = "bitwise"
+    else:
+        if max(d1, d2) > 2 * spread:
+            raise AssertionError(f"multi-scene: replays {d1:.3g} / {d2:.3g}"
+                                 f" from eager, two eager runs {spread:.3g}"
+                                 " apart")
+        agreement = (f"within {max(d1, d2):.3g} of the largest entry, two "
+                     f"eager runs {spread:.3g} apart")
+    restore(start)
+    del start, ref
+    losses = " ".join(f"{m['loss']:.9g}" for m in e1)
+    log("multi-scene", f"{iters} iterations of both scenes from one "
+        f"snapshot, eager twice and through the captured graph twice (one "
+        f"capture, then {iters} replays): state and monitors {agreement};"
+        f" losses {losses}; peak allocated over the warm-up iteration and "
+        f"the capture {capture_peak / 2 ** 30:.2f} GiB (two state "
+        "snapshots of this check included)")
+    return agreement
+
+
 def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
     """Two in-memory scenes (spheres of radius 0.5 and 0.4) in one
-    ``MultiSceneTrainer`` at the default widths, three epochs of 4 steps
-    (exactly 4 B1 a step), then its stacked checkpoint resumed by a fresh
-    trainer, bitwise.  Returns (launches, ms per scene-step, peak)."""
+    ``MultiSceneTrainer`` at the default widths: the captured iteration
+    against the eager one (:func:`multi_replay_check`); three epochs of 4
+    iterations, each one replay of the graph that holds both scenes'
+    steps (exactly 4 B1 an iteration, every one from a replay); its
+    stacked checkpoint resumed by a fresh trainer, bitwise; then two more
+    epochs timed by the host clock and one profiled, captured, and the
+    same eagerly (``multi_scene_train_step`` on the trainer's batches, as
+    ``train_epoch`` runs it on the CPU).  Returns (launches, ms per
+    scene-step captured, peak)."""
     from ndjir_torch.config import load_config
     from ndjir_torch.data.dataset import IDRDataset
     from ndjir_torch.data.synthetic import render_sphere_scene
     from ndjir_torch.parallel import multi_scene
+    from ndjir_torch.train.graph import device_scalars
     from ndjir_torch.train.optim import tree_leaves_with_path
+    from ndjir_torch.train.trainer import epoch_schedule, fetch_monitors
 
     S, epochs = 2, 3
     base = os.path.join(OUT_DIR, "monitor_multi")
@@ -2040,7 +2193,6 @@ def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
     names = [os.path.join(OUT_DIR, "multi", f"sphere{i}") for i in range(S)]
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     mt = multi_scene.MultiSceneTrainer(conf, names, datasets=datasets())
     state = sum(t.numel() * t.element_size() + 8 * t.numel()
                 for p in mt.params for _, t in tree_leaves_with_path(p))
@@ -2049,38 +2201,35 @@ def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
         f"(phase 5's peak, its own state included: "
         f"{one_scene_peak / 2 ** 30:.2f} GiB), ~"
         f"{(one_scene_peak + state / S * (S - 1)) / 2 ** 30:.2f} GiB of 80")
-    step_ms = []
-    real = multi_scene.multi_scene_train_step
+    agreement = multi_replay_check(torch, mt)
+    graph = mt.graph
 
-    def timed(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*a, **k)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        return out
-    multi_scene.multi_scene_train_step = timed
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    captures, replays = graph.captures, graph.replays
     kernels.reset_launches()
-    try:
-        t0 = time.perf_counter()
-        history = mt.train()
-        train_s = time.perf_counter() - t0
-    finally:
-        multi_scene.multi_scene_train_step = real
+    t0 = time.perf_counter()
+    history = mt.train()
+    train_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     iters = min(ds.iters_per_epoch for ds in mt.datasets)
     steps = epochs * iters
     want = dict.fromkeys(kernels.SOURCES, 0)
     want["scatter_add_rows"] = 2 * S * steps
     if launches != want:
         raise AssertionError(f"multi-scene launches {launches}, want {want}")
+    if graph.captures != captures or graph.replays - replays != steps:
+        raise AssertionError(f"multi-scene: {graph.captures - captures} "
+                             f"captures and {graph.replays - replays} "
+                             f"replays in {steps} iterations")
     if len(history) != steps or any(
             not m["grads_finite"] or not math.isfinite(m["loss"])
             for mons in history for m in mons):
         raise AssertionError("multi-scene: a step non-finite or missing")
-    last = step_ms[-iters:]
-    per_scene = sum(last) / len(last) / S
 
     t0 = time.perf_counter()
     fresh = multi_scene.MultiSceneTrainer(conf, names, datasets=datasets())
@@ -2102,36 +2251,102 @@ def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
                 n += 1
     size = sum(os.path.getsize(os.path.join(mt.ckpt_dir, f))
                for f in os.listdir(mt.ckpt_dir))
-    losses = " ".join(f"{m['loss']:.6g}" for m in history[-1])
-    log("multi-scene", f"S={S}: {steps} steps in {train_s:.1f} s (the "
-        f"final stacked checkpoint's save included), launches {launches}; "
-        f"epoch 2 {per_scene:.1f} ms per scene-step (steps "
-        f"{' '.join(f'{t:.1f}' for t in last)} ms); last losses {losses}; "
-        f"peak {peak} B ({peak / 2 ** 30:.2f} GiB) on {card_name}")
-    log("multi-scene", f"stacked checkpoint ({size} B) resumed by a fresh "
-        f"trainer in {load_s:.1f} s at epoch {fresh.start_epoch}: {n} "
-        "leaves and the step counts bitwise equal")
-    del mt, fresh
+    del fresh
+    gc.collect()
+    shutil.rmtree(f"{base}_multiscene")  # the stacked checkpoint; checked
+
+    eager_mons = []
+
+    def eager_epoch(e):
+        """``train_epoch(e)``'s iterations, each the eager
+        ``multi_scene_train_step``; the monitors fetched at the end."""
+        lr_w, lr_f, car, lvg = device_scalars(epoch_schedule(
+            e, mt.lr_w_base, mt.lr_f_base, conf), mt.device)
+        mons = []
+        for it in range(iters):
+            g = e * iters + it
+            cdfs = mt.cdfs if mt.cdfs is not None else mt._shard_cdfs(g)
+            mons += multi_scene.multi_scene_train_step(
+                mt.params, mt.opt_states, *mt.next_batch(), car, lvg, lr_w,
+                lr_f, g, conf, cdfs=cdfs, reducer=mt.plan.row_reducer)
+        eager_mons.extend(fetch_monitors(mons))
+
+    def epoch_ms(run, e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(e)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+    e = epochs
+    graph_ms = [epoch_ms(mt.train_epoch, e), epoch_ms(mt.train_epoch, e + 1)]
+    graph_prof = profile_phase(torch, None, "profile_multi_scene_graph.txt",
+                               run=lambda: mt.train_epoch(e + 2),
+                               steps=iters * S)
+    graph.release()
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(f"{base}_multiscene")  # the stacked checkpoint; checked
+    eager_ms = [epoch_ms(eager_epoch, e + 3), epoch_ms(eager_epoch, e + 4)]
+    eager_prof = profile_phase(torch, None, "profile_multi_scene_eager.txt",
+                               run=lambda: eager_epoch(e + 5),
+                               steps=iters * S)
+    if len(eager_mons) != 3 * iters * S or not all(
+            m["grads_finite"] and math.isfinite(m["loss"])
+            for m in eager_mons + [m for mons in mt.history[steps:]
+                                   for m in mons]):
+        raise AssertionError("multi-scene: a timed step non-finite")
+    per_scene = graph_ms[-1] / iters / S
+
+    def idle(prof):
+        wall, busy = prof
+        return "not measured" if busy is None else \
+            f"{100 - 100 * busy / wall:.1f}% (busy {busy:.1f} of {wall:.1f})"
+    losses = " ".join(f"{m['loss']:.6g}" for m in history[-1])
+    log("multi-scene", f"S={S}: {steps} iterations in {train_s:.1f} s (the "
+        f"final stacked checkpoint's save included), launches {launches} "
+        f"({steps} replays of both scenes' steps, {graph.tally} each); "
+        f"last losses {losses}; peak allocated {peak} B "
+        f"({peak / 2 ** 30:.2f} GiB), reserved {reserved} B "
+        f"({reserved / 2 ** 30:.2f} GiB, the graph's pool included) on "
+        f"{card_name}")
+    log("multi-scene", f"host clock, synchronized epochs: captured "
+        f"{' '.join(f'{t / iters / S:.1f}' for t in graph_ms)} ms per "
+        f"scene-step, eager {' '.join(f'{t / iters / S:.1f}' for t in eager_ms)}"
+        f"; device idle under the profiler: captured {idle(graph_prof)}, "
+        f"eager {idle(eager_prof)} ms per scene-step; replay vs eager "
+        f"{agreement}")
+    log("multi-scene", f"stacked checkpoint ({size} B) resumed by a fresh "
+        f"trainer in {load_s:.1f} s at epoch {epochs}: {n} leaves and the "
+        "step counts bitwise equal")
+    del mt, graph
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, per_scene, peak
 
 
-def nccl_phase(torch, card_name):
+def nccl_phase(torch, kernels, card_name):
     """``initialize_distributed`` over NCCL at world size 1, then the
     sharded step's collectives on that group of one (the counts summed
     before the division, the gradients and monitors summed after, the
-    global finite flag) against the plain step."""
+    global finite flag) against the plain step; then the sharded
+    ``train_steps`` (``ShardReducer(None)``, K=8, its collectives in the
+    captured graph) at the default widths: replays against eager sharded
+    steps, three calls with exact captures, replays and launches timed by
+    the host clock, one profiled.  Returns the launches of the three
+    calls."""
     import torch.distributed as dist
 
     from ndjir_torch.parallel.mesh import ShardReducer
     from ndjir_torch.parallel.multi_scene import initialize_distributed
     from ndjir_torch.train.optim import apply_updates
-    from ndjir_torch.train.trainer import loss_and_grads
+    from ndjir_torch.train.trainer import (
+        fetch_monitors,
+        loss_and_grads,
+        train_steps,
+    )
 
     initialize_distributed(f"localhost:{_free_port()}", 1, 0,
                            device="cuda")
+    trainer = graph = None
     try:
         if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
             raise AssertionError(f"process group {dist.get_backend()}")
@@ -2155,11 +2370,75 @@ def nccl_phase(torch, card_name):
             f"global finite flag) against the plain step: "
             f"{'bitwise equal' if bitwise else f'within {worst:.3g}'}, "
             f"loss {loss.item():.9g}, update taken on {card_name}")
-        del trainer, plain, sharded, grads
+        trainer = None
+        del plain, sharded, grads, args, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        trainer = make_trainer(torch, [f"train.steps_per_call={GRAPH_SPC}"],
+                               tag="monitor_nccl_graph", views=GRAPH_VIEWS)
+        conf, graph = trainer.conf, trainer.graph
+        agreement = replay_check(torch, trainer, "sharded", reducer=red)
+        per_step = STEP_LAUNCHES["default"]
+        if graph.tally != per_step:
+            raise AssertionError(f"sharded: the graph holds {graph.tally}, "
+                                 f"want {per_step}")
+        sched = graph_schedule(trainer)
+
+        def call(c):
+            mons = train_steps(trainer.params, trainer.opt_state,
+                               *trainer.next_batches(GRAPH_SPC), *sched,
+                               c * GRAPH_SPC, conf, cdfs=trainer.cdfs,
+                               graph=graph, reducer=red,
+                               step_cdfs=trainer.step_cdfs)
+            return fetch_monitors([mons])
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls = 3
+        replays, captures = graph.replays, graph.captures
+        kernels.reset_launches()
+        ms, hist = [], []
+        for c in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist += call(c)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / GRAPH_SPC)
+        launches = dict(kernels.LAUNCHES)
+        reserved = torch.cuda.max_memory_reserved()
+        steps = calls * GRAPH_SPC
+        want = {k: n * steps for k, n in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"sharded: launches {launches}, want {want}")
+        if graph.replays - replays != steps or graph.captures != captures:
+            raise AssertionError(f"sharded: {graph.replays - replays} "
+                                 f"replays and {graph.captures - captures} "
+                                 f"captures in {steps} steps")
+        if not all(m["grads_finite"] and math.isfinite(m["loss"])
+                   for m in hist):
+            raise AssertionError("sharded: a step not finite")
+        wall, busy = profile_phase(torch, None, "profile_sharded_graph.txt",
+                                   run=lambda: call(calls),
+                                   steps=GRAPH_SPC)
+        idle = "not measured" if busy is None else \
+            f"{100 - 100 * busy / wall:.1f}% (busy {busy:.1f} of {wall:.1f})"
+        log("nccl", f"sharded train_steps over the NCCL group of one: "
+            f"{steps} steps in {calls} calls, launches {launches} ({steps} "
+            f"replays x {per_step}, no capture), host clock "
+            f"{' '.join(f'{v:.1f}' for v in ms)} ms/step; device idle under"
+            f" the profiler {idle} ms/step; reserved {reserved / 2 ** 30:.2f}"
+            f" GiB with the graph's pool; replay vs eager {agreement}; on "
+            f"{card_name}")
+        return launches
     finally:
+        if graph is not None:
+            graph.release()    # its collectives name the group
+        del trainer, graph
         dist.destroy_process_group()
-    gc.collect()
-    torch.cuda.empty_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def opt_ins_phase(torch, kernels, card_name, net_ms_step, one_scene_peak):
@@ -2174,7 +2453,7 @@ def opt_ins_phase(torch, kernels, card_name, net_ms_step, one_scene_peak):
     launches["multi_scene"], numbers["ms_per_scene_step"], \
         numbers["multi_scene_peak"] = multi_scene_phase(
             torch, kernels, card_name, one_scene_peak)
-    nccl_phase(torch, card_name)
+    launches["sharded_graph"] = nccl_phase(torch, kernels, card_name)
     return launches, numbers
 
 
@@ -2701,13 +2980,14 @@ def max_diff(torch, state, ref):
     return worst, equal
 
 
-def replay_check(torch, trainer, path):
+def replay_check(torch, trainer, path, reducer=None):
     """From one snapshot of the state, 8 steps on the same staged batches:
     twice eagerly (the run-to-run spread of the eager step), then twice
     through ``train_steps`` (the first call warms up on its first step and
-    captures, the second replays all 8).  Replayed steps must equal the
+    captures, the second replays all 8); with a ``reducer``, the sharded
+    steps, their collectives in the graph.  Replayed steps must equal the
     eager ones bitwise where two eager runs do, else lie within twice
-    their spread.  Returns the numbers."""
+    their spread.  Returns the agreement."""
     from ndjir_torch.train.trainer import (
         fetch_monitors,
         train_step,
@@ -2734,14 +3014,15 @@ def replay_check(torch, trainer, path):
         restore()
         return fetch_monitors([train_step(
             trainer.params, trainer.opt_state, *(b[j] for b in batches),
-            *sched, conf, cdfs=trainer.cdfs, step=j, proposal_grid=grid)
-            for j in range(GRAPH_SPC)])
+            *sched, conf, cdfs=trainer.cdfs, step=j, proposal_grid=grid,
+            reducer=reducer) for j in range(GRAPH_SPC)])
 
     def replayed():
         restore()
         return fetch_monitors([train_steps(
             trainer.params, trainer.opt_state, *batches, *sched, 0, conf,
-            cdfs=trainer.cdfs, proposal_grid=grid, graph=graph)])
+            cdfs=trainer.cdfs, proposal_grid=grid, graph=graph,
+            reducer=reducer, step_cdfs=trainer.step_cdfs)])
 
     e1 = eager()
     ref = [t.clone() for t in state]
@@ -2953,6 +3234,7 @@ def main() -> int:
     scatter_edge_cases(torch, scatter)
     fold_edge_cases(torch, fold)
     build_edge_cases(torch, octa_build)
+    softplus_grad_check(torch, card_name)
     log("kernels", f"edge cases done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

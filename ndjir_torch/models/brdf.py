@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from ndjir_torch.ops.ties import clip
+
 
 def masked_dot(u: torch.Tensor, v: torch.Tensor, eps: float = 1e-8,
                with_mask: bool = False):
@@ -20,7 +22,7 @@ def masked_dot(u: torch.Tensor, v: torch.Tensor, eps: float = 1e-8,
     (reference: specular_brdf.py:23-37)."""
     uv = torch.sum(u * v, dim=-1, keepdim=True)
     mask = (uv > eps).to(uv.dtype).detach()
-    uv = torch.clamp_min(uv, eps)
+    uv = clip(uv, eps)
     if with_mask:
         return uv, mask
     return uv

@@ -35,6 +35,7 @@ from ndjir_torch.ops.grid import (
     voxel_tv_octa,
 )
 from ndjir_torch.ops.octa_build import build_octa_table
+from ndjir_torch.ops.ties import clip
 
 Params = Dict[str, Any]
 
@@ -98,7 +99,7 @@ def _normalized_W(p: Params) -> torch.Tensor:
     (reference: python/network.py:88-93)."""
     W = p["W"]
     if "g" in p:
-        W = p["g"] * W / torch.clamp_min(
+        W = p["g"] * W / clip(
             torch.linalg.norm(W, dim=0, keepdim=True), 1e-12)
     return W
 
@@ -342,7 +343,7 @@ def _geometric_mlp(params: Params, pe_x: torch.Tensor, vfeat, conf):
                         h = h / math.sqrt(2)
 
     sdf, feature = h[..., 0:1], h[..., 1:]
-    gain = torch.clamp(torch.exp(params["gain"] * 10.0), 1e-6, 5e4)
+    gain = clip(torch.exp(params["gain"] * 10.0), 1e-6, 5e4)
     return sdf, feature, gain
 
 
@@ -477,7 +478,7 @@ def environment_light_apply(params, light_dirs, conf):
                    _compute_dtype(conf))
     out = get_last_activation(c.act_last, c.inverse_black_degree)(h)
     if c.upper_bound > 0:
-        out = torch.clamp(out, 0.0, c.upper_bound)
+        out = clip(out, 0.0, c.upper_bound)
     return out
 
 
@@ -571,7 +572,7 @@ def roughness_apply(params, x, feature, normal, conf):
     r = torch.sigmoid(h0)
     if conf.specular_brdf.model == "filament" and conf.specular_brdf.remap:
         r = r ** 2
-    r = torch.clamp(r, c.lower_bound, 1.0)
+    r = clip(r, c.lower_bound, 1.0)
     return r, std
 
 

@@ -1,13 +1,129 @@
 """Activation functions (counterpart of ``ndjir_tpu/ops/activations.py``).
 
-Element-wise PyTorch ops; every one is twice-differentiable, as the eikonal
+Element-wise ops; every one is twice-differentiable, as the eikonal
 double backward needs.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Dict
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+# above beta x = 20 softplus returns x, as PyTorch's fused op does
+_THRESHOLD = 20.0
+
+# The first derivative on the card: one elementwise kernel, compiled at
+# first use by PyTorch's jiterator (which keeps it in its kernel cache on
+# disk), instantiated for float32, bfloat16 and float16, with
+# softplus_backward's own arithmetic
+# (float opmath; z / (z + 1) with z = exp(beta x), g above the threshold)
+# and 0 at x = +-0, which the plain version takes a second pass over the
+# tensor to write.  BETA and THRESHOLD are float32 hex literals.
+_GRAD_CODE = """
+template <typename T> T NAME(T g, T x) {
+  const float beta = BETA, threshold = THRESHOLD;
+  float xf = static_cast<float>(x);
+  if (xf == 0.0f) {
+    return static_cast<T>(0.0f);
+  }
+  float bx = xf * beta;
+  float z = expf(bx);
+  return bx > threshold ? g
+                        : static_cast<T>(static_cast<float>(g) * z / (z + 1.0f));
+}
+"""
+_GRAD_FNS: Dict[float, Callable] = {}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _f32_literal(v: float) -> str:
+    return float(np.float32(v)).hex() + "f"
+
+
+def _softplus_grad_kernel(beta: float) -> Callable:
+    fn = _GRAD_FNS.get(beta)
+    if fn is None:
+        from torch.cuda import jiterator
+
+        name = f"ndjir_softplus_grad_{len(_GRAD_FNS)}"
+        code = _GRAD_CODE.replace("NAME", name) \
+            .replace("BETA", _f32_literal(beta)) \
+            .replace("THRESHOLD", _f32_literal(_THRESHOLD))
+        fn = _GRAD_FNS[beta] = jiterator._create_jit_fn(code)
+    return fn
+
+
+def _softplus_grad_plain(g: torch.Tensor, x: torch.Tensor,
+                         beta: float) -> torch.Tensor:
+    d = torch.ops.aten.softplus_backward(g, x, beta, _THRESHOLD)
+    return d.masked_fill_(x == 0, 0.0)
+
+
+def _softplus_grad(g: torch.Tensor, x: torch.Tensor,
+                   beta: float) -> torch.Tensor:
+    """g * softplus_beta'(x) as PyTorch's fused backward computes it
+    (z / (z + 1) with z = exp(beta x); 1 above the threshold), and 0 at
+    x = +-0, where the reference's max(x, 0) + log1p(exp(-beta |x|)) / beta
+    takes half of g from the max's tie and minus half from |x|.  One
+    jiterator kernel on CUDA tensors of float32, bfloat16 or float16 (any
+    other dtype, or g and x of two dtypes, raises); on CPU tensors the
+    plain version (:func:`_softplus_grad_plain`)."""
+    if not x.is_cuda:
+        return _softplus_grad_plain(g, x, beta)
+    if x.dtype not in _KERNEL_DTYPES or g.dtype != x.dtype:
+        raise TypeError(f"softplus gradient on the card: no kernel for "
+                        f"g {g.dtype} and x {x.dtype} (it takes one of "
+                        f"{_KERNEL_DTYPES} for both)")
+    return _softplus_grad_kernel(beta)(g, x)
+
+
+class _Softplus(torch.autograd.Function):
+    """softplus_beta(x), saving only x; its derivative is
+    :class:`_SoftplusGrad`."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, beta: float) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.beta = beta
+        return F.softplus(x, beta=beta, threshold=_THRESHOLD)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return _SoftplusGrad.apply(g, x, ctx.beta), None
+
+
+class _SoftplusGrad(torch.autograd.Function):
+    """g * softplus_beta'(x) (:func:`_softplus_grad`), differentiable once
+    more for the eikonal double backward: in g, the same first derivative;
+    in x, beta sigmoid(beta x) (1 - sigmoid(beta x)) below the threshold
+    and 0 above it, PyTorch's own second derivative of softplus, at x = 0
+    too (beta / 4, as the reference's)."""
+
+    @staticmethod
+    def forward(ctx, g: torch.Tensor, x: torch.Tensor,
+                beta: float) -> torch.Tensor:
+        ctx.save_for_backward(g, x)
+        ctx.beta = beta
+        return _softplus_grad(g, x, beta)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg: torch.Tensor):
+        g, x = ctx.saved_tensors
+        beta = ctx.beta
+        dg = _softplus_grad(gg, x, beta) if ctx.needs_input_grad[0] \
+            else None
+        dx = None
+        if ctx.needs_input_grad[1]:
+            bx = x * beta
+            dx = torch.ops.aten.sigmoid_backward(gg * g, bx.sigmoid()) \
+                * (bx < _THRESHOLD).to(gg.dtype) * beta
+        return dg, dx, None
 
 
 def softplus(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -17,9 +133,12 @@ def softplus(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     PyTorch's fused op saves only its input for the (double) backward, where
     the reference's stable form max(x, 0) + log1p(exp(-beta |x|)) / beta
     would save three tensors per hidden layer.  The two agree to f32
-    rounding; above beta x = 20 the fused op returns x, which differs from
-    the stable form by < 2e-9 / beta."""
-    return F.softplus(x, beta=beta, threshold=20.0)
+    rounding in value; above beta x = 20 the fused op returns x, which
+    differs from the stable form by < 2e-9 / beta.  The first derivative is
+    the fused op's but at x = 0, where the reference's is 0 (the fused
+    op's is 1/2); the second derivative is the fused op's, beta / 4 at 0 as
+    the reference's (:class:`_SoftplusGrad`)."""
+    return _Softplus.apply(x, beta)
 
 
 def squareplus(x: torch.Tensor, b: float = 4.0) -> torch.Tensor:

@@ -27,7 +27,8 @@ import torch.distributed as dist
 
 class ShardReducer:
     """The collectives of one sharded step, over the ranks of ``group``
-    (``None``: every rank)."""
+    (``None``: every rank).  They read nothing back to the host, so a CUDA
+    graph capture of the step holds them (``train.graph.CapturedStep``)."""
 
     def __init__(self, group=None):
         self.group = group
@@ -104,14 +105,14 @@ class ShardingPlan:
         return x.narrow(dim, i * (n // parts), n // parts).contiguous()
 
     def shard(self, x: torch.Tensor, data: bool = True,
-              rays: bool = True) -> torch.Tensor:
-        """This rank's slice of ``x``: its first axis, B, over the data
-        axis (when ``data``), its second, R, over the rays axis (when
-        ``rays``)."""
+              rays: bool = True, lead: int = 0) -> torch.Tensor:
+        """This rank's slice of ``x``: after its first ``lead`` axes, kept
+        whole, the next axis, B, over the data axis (when ``data``), and
+        the one after, R, over the rays axis (when ``rays``)."""
         if data:
-            x = self._take(x, 0, 0)
+            x = self._take(x, lead, 0)
         if rays:
-            x = self._take(x, 1, 1)
+            x = self._take(x, lead + 1, 1)
         return x
 
     def shard_batch(self, camloc, raydir, color_gt, obj_mask
@@ -119,6 +120,15 @@ class ShardingPlan:
         """camloc (B, 3) over data; the (B, R, .) arrays over both."""
         return (self.shard(camloc, rays=False), self.shard(raydir),
                 self.shard(color_gt), self.shard(obj_mask))
+
+    def shard_batch_steps(self, camloc, raydir, color_gt, obj_mask
+                          ) -> Tuple[torch.Tensor, ...]:
+        """The K staged batches of one ``train_steps`` call (the JAX
+        package's ``shard_batch_steps``): the steps axis K kept whole,
+        camloc (K, B, 3) over data, the (K, B, R, .) arrays over both."""
+        return (self.shard(camloc, rays=False, lead=1),
+                self.shard(raydir, lead=1), self.shard(color_gt, lead=1),
+                self.shard(obj_mask, lead=1))
 
     def shard_cdfs(self, cdfs: Dict, data: bool = True) -> Dict:
         """The Monte-Carlo uniforms of the whole batch, (B, R, ...) each,

@@ -9,11 +9,16 @@ axis, the loss's counts and the gradients summed over the row
 (:mod:`ndjir_torch.parallel.mesh`).  Parameters never meet across scenes.
 
 The JAX package stacks the scenes on a leading axis and vmaps one step over
-it.  Here each scene keeps its own tree and the step loops over them: one
-default scene's step (B=4 x R=512 x 128 samples) already fills an H100,
-and a vmap would need batching rules for the scatter and fold kernels
-(``autograd.Function``s over ``ctypes`` calls) and the eikonal double
-backward.  The scenes are stacked only in a checkpoint,
+it, one program per iteration.  Here each scene keeps its own tree and the
+step loops over them: one default scene's step (B=4 x R=512 x 128
+samples) already fills an H100, and a vmap would need batching rules for
+the scatter and fold kernels (``autograd.Function``s over ``ctypes``
+calls) and the eikonal double backward.  On the card the loop is one
+program all the same: ``MultiSceneTrainer.train`` replays one CUDA graph
+per iteration that holds this rank's scenes' steps, the row's collectives
+included (``train.graph.CapturedStep``); :func:`multi_scene_train_step`
+is the same loop run eagerly (the CPU's path, and the graph's warm-up).
+The scenes are stacked only in a checkpoint,
 ``<monitor_base>_multiscene/checkpoints``: every leaf ``(S, ...)`` in
 scene order, the step counts ``(S,)``, and the scene list in the manifest,
 the JAX package's layout, so each package resumes the other's.
@@ -44,7 +49,7 @@ from ndjir_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from ndjir_torch.train.graph import device_scalars
+from ndjir_torch.train.graph import CapturedStep, device_scalars
 from ndjir_torch.train.optim import init_optimizer, tree_leaves_with_path
 from ndjir_torch.train.trainer import (
     Trainer,
@@ -160,6 +165,8 @@ class MultiSceneTrainer:
             self.cdfs = self._shard_cdfs(None)
         self.ckpt_dir = os.path.join(f"{conf.monitor_base_path}_multiscene",
                                      "checkpoints")
+        # on the card: one captured iteration of every local scene's step
+        self.graph = CapturedStep(train_step, conf)
         self.start_epoch = 0
         self.history = []  # per step: one {monitor: value} per local scene
         self._maybe_resume()
@@ -328,52 +335,73 @@ class MultiSceneTrainer:
                 out[k].append(self.plan.shard(t, data=False, rays=rays))
         return out
 
+    def train_epoch(self, epoch: int) -> None:
+        """One epoch's iterations at ``epoch``'s schedule, their monitors
+        added to the history and the series.  On the card each iteration
+        is one replay of ``self.graph`` (the first warms up eagerly and
+        captures), its batches and, under fresh seeds, its uniforms copied
+        into the graph's buffers; on the CPU it is
+        :func:`multi_scene_train_step`."""
+        conf = self.conf
+        iters = min(ds.iters_per_epoch for ds in self.datasets)
+        reducer = self.plan.row_reducer
+        lr_w, lr_f, car, lvg = device_scalars(
+            epoch_schedule(epoch, self.lr_w_base, self.lr_f_base, conf),
+            self.device)
+        epoch_mons = []
+        for it in range(iters):
+            gstep = epoch * iters + it
+            batch = self.next_batch()
+            if self.device.type == "cuda":
+                epoch_mons.append(self.graph.run(
+                    list(zip(self.params, self.opt_states)),
+                    [[t.unsqueeze(0) for t in scene]
+                     for scene in zip(*batch)],
+                    (car, lvg, lr_w, lr_f), self.cdfs,
+                    step_cdfs=lambda j, g=gstep: self._shard_cdfs(g + j),
+                    reducer=reducer))
+                continue
+            cdfs = self.cdfs if self.cdfs is not None \
+                else self._shard_cdfs(gstep)
+            epoch_mons.append(multi_scene_train_step(
+                self.params, self.opt_states, *batch, car, lvg, lr_w, lr_f,
+                gstep, conf, cdfs=cdfs, reducer=reducer))
+        n = len(self.local)
+        flat = fetch_monitors([m for mons in epoch_mons for m in mons])
+        for it in range(len(epoch_mons)):
+            mons = flat[it * n:(it + 1) * n]
+            self.history.append(mons)
+            if not self.writes:
+                continue
+            gstep = epoch * iters + it
+            for i, m in zip(self.local, mons):
+                for k, s in self.series[i].items():
+                    s.add(gstep, m[k])
+                if not m["grads_finite"]:
+                    logger.info(f"[multi-scene] non-finite grads for "
+                                f"scene {i} at epoch {epoch} iter {it} "
+                                "(update skipped)")
+        if self.writes:
+            losses = np.mean([[m["loss"] for m in mons]
+                              for mons in self.history[-iters:]], axis=0)
+            logger.info(f"[multi-scene] epoch {epoch}: losses {losses}")
+            for i in self.local:
+                self.monitor_time[i].add(epoch)
+
     def train(self, epochs: Optional[int] = None):
         """Train epochs [start_epoch, epochs) (the config's schedule by
-        default); returns the per-step history of this rank's scenes."""
+        default) with :meth:`train_epoch`, validating and checkpointing as
+        the single-scene ``Trainer``; returns the per-step history of this
+        rank's scenes."""
         conf = self.conf
         E = epochs if epochs is not None else conf.train.epoch
-        iters = min(ds.iters_per_epoch for ds in self.datasets)
         every = conf.train.checkpoint_interval_epochs
-        reducer = self.plan.row_reducer
         for epoch in range(self.start_epoch, E):
             if (epoch != 0 and conf.valid.epoch_interval > 0
                     and epoch % conf.valid.epoch_interval == 0
                     and not conf.valid.skip):
                 self.validate(epoch)
-            lr_w, lr_f, car, lvg = device_scalars(
-                epoch_schedule(epoch, self.lr_w_base, self.lr_f_base, conf),
-                self.device)
-            epoch_mons = []
-            for it in range(iters):
-                gstep = epoch * iters + it
-                cdfs = self.cdfs if self.cdfs is not None \
-                    else self._shard_cdfs(gstep)
-                epoch_mons.append(multi_scene_train_step(
-                    self.params, self.opt_states, *self.next_batch(), car,
-                    lvg, lr_w, lr_f, gstep, conf, cdfs=cdfs,
-                    reducer=reducer))
-            n = len(self.local)
-            flat = fetch_monitors([m for mons in epoch_mons for m in mons])
-            for it in range(len(epoch_mons)):
-                mons = flat[it * n:(it + 1) * n]
-                self.history.append(mons)
-                if not self.writes:
-                    continue
-                gstep = epoch * iters + it
-                for i, m in zip(self.local, mons):
-                    for k, s in self.series[i].items():
-                        s.add(gstep, m[k])
-                    if not m["grads_finite"]:
-                        logger.info(f"[multi-scene] non-finite grads for "
-                                    f"scene {i} at epoch {epoch} iter {it} "
-                                    "(update skipped)")
-            if self.writes:
-                losses = np.mean([[m["loss"] for m in mons]
-                                  for mons in self.history[-iters:]], axis=0)
-                logger.info(f"[multi-scene] epoch {epoch}: losses {losses}")
-                for i in self.local:
-                    self.monitor_time[i].add(epoch)
+            self.train_epoch(epoch)
             if every > 0 and (epoch + 1) % every == 0:
                 self.save(epoch)
         if E > self.start_epoch:

@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ndjir_torch.ops.ties import absolute, clip
 from ndjir_torch.render.renderer import make_mc_cdfs, pb_render
 from ndjir_torch.render.sampler import sample_points
 
@@ -60,7 +61,7 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
                        device=n_obj.device)])).unbind()
 
     # RGB (loss.py:59-66)
-    err = torch.abs(res["color_pixel"] - color_gt) if tr.rgb_loss == "l1" \
+    err = absolute(res["color_pixel"] - color_gt) if tr.rgb_loss == "l1" \
         else (res["color_pixel"] - color_gt) ** 2
     if tr.mask_weight > 0.0:
         loss_rgb = torch.sum(err * obj_mask) / (n_obj + 1e-5)
@@ -84,7 +85,7 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
 
     # mask BCE (loss.py:107-115)
     if tr.mask_weight > 0.0:
-        p = torch.clamp(res["obj_mask_pred"], 1e-3, 1.0 - 1e-3)
+        p = clip(res["obj_mask_pred"], 1e-3, 1.0 - 1e-3)
         bce = -(obj_mask * torch.log(p) + (1.0 - obj_mask) * torch.log(1.0 - p))
         loss_mask = torch.sum(bce) / (n_mask + 1e-5)
     else:
@@ -96,7 +97,7 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
         if not tr.base_color_prior_sym_backward:
             bc = bc.detach()
         prior_base_color = torch.sum(
-            torch.abs(bc - res["base_color_ptb"]) * mask) / denorm
+            absolute(bc - res["base_color_ptb"]) * mask) / denorm
     else:
         prior_base_color = zero
 
@@ -104,10 +105,10 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
     if tr.roughness_prior_weight > 0.0:
         pv = conf.roughness_network.prior_value
         prior_roughness = torch.sum(
-            torch.abs(res["roughness"] - pv) / res["std_roughness"] * mask
+            absolute(res["roughness"] - pv) / res["std_roughness"] * mask
         ) / denorm
         reg_std_roughness = torch.sum(
-            torch.clamp(torch.log(res["std_roughness"]), 1e-5, 1e5) * mask
+            clip(torch.log(res["std_roughness"]), 1e-5, 1e5) * mask
         ) / denorm
     else:
         prior_roughness = reg_std_roughness = zero
@@ -116,10 +117,10 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
     if tr.specular_reflectance_prior_weight > 0.0:
         pv = conf.specular_reflectance_network.prior_value
         prior_specular = torch.sum(
-            torch.abs(res["specular_reflectance"] - pv)
+            absolute(res["specular_reflectance"] - pv)
             / res["std_specular_reflectance"] * mask) / denorm
         reg_std_specular = torch.sum(
-            torch.clamp(torch.log(res["std_specular_reflectance"]), 1e-5, 1e5)
+            clip(torch.log(res["std_specular_reflectance"]), 1e-5, 1e5)
             * mask) / denorm
     else:
         prior_specular = reg_std_specular = zero

@@ -46,6 +46,7 @@ from ndjir_torch.ops.directions import (
     sample_importance_directions,
     sample_uniform_directions,
 )
+from ndjir_torch.ops.ties import clip
 from ndjir_torch.render.sampler import _exclusive_cumprod
 
 
@@ -198,7 +199,7 @@ def pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
     g = gain.reshape((1,) * sdf_x_fg.ndim)
     cdf0 = torch.sigmoid(g * sdf0)
     cdf1 = torch.sigmoid(g * sdf1)
-    alpha_fg = torch.clamp((cdf0 - cdf1 + 1e-5) / (cdf0 + 1e-5), 0.0, 1.0)
+    alpha_fg = clip((cdf0 - cdf1 + 1e-5) / (cdf0 + 1e-5), 0.0, 1.0)
 
     # background alpha/color (NeRF++ or constant; renderer.py:70-77)
     if conf.background_modeling:

@@ -16,11 +16,12 @@ than ``[1, 1]`` shards each batch over the ranks of ``torch.distributed``
 (:mod:`ndjir_torch.parallel.mesh`).
 
 :func:`train_steps` is the JAX package's fused K-step call: on the card the
-replays of one captured step (:mod:`ndjir_torch.train.graph`), on the CPU
-the same step as a loop.  ``Trainer.train`` calls it for every call of
-``train.steps_per_call`` steps (k > 1; the sharded step keeps the per-step
-loop) after staging the call's K batches in one copy, and runs
-``train_step`` eagerly at ``steps_per_call: 1``.  Neither waits on the
+replays of one captured step (:mod:`ndjir_torch.train.graph`; a sharded
+step's collectives captured with it), on the CPU the same step as a loop.
+``Trainer.train`` calls it for every call of ``train.steps_per_call``
+steps (k > 1, sharded or not) after staging the call's K batches in one
+copy and taking this rank's shard of them, and runs ``train_step``
+eagerly at ``steps_per_call: 1``.  Neither waits on the
 card: the non-finite skip is a select on the device, the schedule scalars
 are device tensors, and the monitors stay on the device until one fetch at
 the end of the epoch.
@@ -30,7 +31,7 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -131,39 +132,56 @@ def train_step(params, opt_state, camloc, raydir, color_gt, obj_mask,
 def train_steps(params, opt_state, camloc, raydir, color_gt, obj_mask,
                 cos_anneal, lv_gain, lr_weight, lr_feat, step0, conf,
                 cdfs=None, proposal_grid=None,
-                graph: Optional[CapturedStep] = None
+                graph: Optional[CapturedStep] = None,
+                reducer: Optional[ShardReducer] = None,
+                step_cdfs: Optional[Callable[[int], Dict]] = None
                 ) -> Dict[str, torch.Tensor]:
     """K training steps in one call (the JAX package's ``train_steps``,
     ndjir_tpu/train/trainer.py:62-95): the batch arrays carry a leading K
     axis, the schedule scalars, ``cdfs`` and ``proposal_grid`` are shared
-    by the K steps, and step j is global step ``step0 + j`` (with
-    ``cdfs`` None, its fresh uniforms are ``make_mc_cdfs(..., step0 +
-    j)``).  Updates ``params`` and ``opt_state`` in place and returns the
-    monitors stacked along K.
+    by the K steps, and step j is global step ``step0 + j``.  With
+    ``cdfs`` None its uniforms are ``step_cdfs(step0 + j)``, by default
+    ``make_mc_cdfs(..., step0 + j)`` of the batch's shape.  With a
+    ``reducer`` the batches are this rank's shards (``ShardingPlan.
+    shard_batch_steps``) and every step is :func:`train_step`'s sharded
+    step; fresh uniforms then need ``step_cdfs``, this rank's shard of the
+    whole batch's draw (``Trainer.step_cdfs``).  Updates ``params`` and
+    ``opt_state`` in place and returns the monitors stacked along K.
 
-    On a CUDA device the steps are replays of one captured ``train_step``
-    (``graph``, a :class:`~ndjir_torch.train.graph.CapturedStep` kept by
-    the caller across calls; a new one, captured for this call alone, when
-    None).  On the CPU the same step runs as a loop."""
+    On a CUDA device the steps are replays of one captured ``train_step``,
+    its collectives included (``graph``, a
+    :class:`~ndjir_torch.train.graph.CapturedStep` kept by the caller
+    across calls; a new one, captured for this call alone, when None).  On
+    the CPU the same step runs as a loop."""
     K = camloc.shape[0]
     B, R = color_gt.shape[1:3]
     step0 = int(step0)
+    if cdfs is None and step_cdfs is None:
+        if reducer is not None:
+            raise ValueError("a sharded train_steps with fresh uniforms "
+                             "needs step_cdfs (this rank's shard of each "
+                             "step's draw)")
 
-    def draw(j):
-        return make_mc_cdfs(conf, B, R, step=step0 + j,
-                            dtype=color_gt.dtype, device=color_gt.device)
+        def step_cdfs(g):
+            return make_mc_cdfs(conf, B, R, step=g, dtype=color_gt.dtype,
+                                device=color_gt.device)
 
     if camloc.is_cuda:
         graph = graph if graph is not None else CapturedStep(train_step,
                                                              conf)
-        return graph.run(params, opt_state, camloc, raydir, color_gt,
-                         obj_mask, (cos_anneal, lv_gain, lr_weight, lr_feat),
+        return graph.run([(params, opt_state)],
+                         [(camloc, raydir, color_gt, obj_mask)],
+                         (cos_anneal, lv_gain, lr_weight, lr_feat),
                          cdfs, proposal_grid,
-                         step_cdfs=None if cdfs is not None else draw)
+                         step_cdfs=None if cdfs is not None
+                         else lambda j: step_cdfs(step0 + j),
+                         reducer=reducer)[0]
     mons = [train_step(params, opt_state, camloc[j], raydir[j], color_gt[j],
                        obj_mask[j], cos_anneal, lv_gain, lr_weight, lr_feat,
-                       conf, cdfs=cdfs if cdfs is not None else draw(j),
-                       step=step0 + j, proposal_grid=proposal_grid)
+                       conf, cdfs=cdfs if cdfs is not None
+                       else step_cdfs(step0 + j),
+                       step=step0 + j, proposal_grid=proposal_grid,
+                       reducer=reducer)
             for j in range(K)]
     return {k: torch.stack([m[k] for m in mons]) for k in mons[0]}
 
@@ -387,9 +405,11 @@ class Trainer:
 
     def next_batches(self, k: int):
         """The next ``k`` training batches on the device, stacked (k, ...)
-        and staged in one copy, as the JAX trainer stages a call's."""
+        and staged in one copy, as the JAX trainer stages a call's; this
+        rank's shard of each (``ShardingPlan.shard_batch_steps``)."""
         bs = [self._host_batch() for _ in range(k)]
-        return stage([np.stack(a) for a in zip(*bs)], self.device)
+        return self.plan.shard_batch_steps(
+            *stage([np.stack(a) for a in zip(*bs)], self.device))
 
     def step_cdfs(self, gstep: int):
         """This rank's Monte-Carlo uniforms for global step ``gstep``."""
@@ -411,7 +431,7 @@ class Trainer:
         multiple of ``renderer.proposal_refresh_interval`` and starts a
         call (:func:`call_chunks`), as in the JAX package.  A call of k > 1
         steps goes through :func:`train_steps` (the captured step on the
-        card), unless the step is sharded."""
+        card), sharded or not."""
         conf = self.conf
         E = conf.train.epoch
         stop = E if stop_epoch is None else min(stop_epoch, E)
@@ -434,11 +454,12 @@ class Trainer:
                 if self.coarse_grid and g0 % refresh_interval(conf) == 0:
                     self.proposal_grid = make_proposal_grid(self.params,
                                                             conf)
-                if k > 1 and reducer is None:
+                if k > 1:
                     epoch_mons.append(train_steps(
                         self.params, self.opt_state, *self.next_batches(k),
                         car, lvg, lr_w, lr_f, g0, conf, cdfs=self.cdfs,
-                        proposal_grid=self.proposal_grid, graph=self.graph))
+                        proposal_grid=self.proposal_grid, graph=self.graph,
+                        reducer=reducer, step_cdfs=self.step_cdfs))
                     continue
                 for j in range(k):
                     batch = self.plan.shard_batch(*self.next_batch())

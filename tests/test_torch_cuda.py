@@ -377,3 +377,175 @@ def test_render_call_builds_the_table_once_on_the_octa_layout(cuda):
                            (16, 16), conf)
         assert kernels.LAUNCHES["build_octa_table"] == builds
         assert img.shape == (1, 3, 8, 8) and np.isfinite(img).all()
+
+
+def _tiny_conf(extra=()):
+    from ndjir_torch.config import load_config
+
+    return load_config("default", overrides=[
+        "valid.skip=true", "data_path=synthetic/sphere",
+        "geometric_network.voxel.grid_size=16",
+        "geometric_network.feature_size=64", "train.batch_size=2",
+        "train.n_rays=8", "renderer.n_samples0=8", "renderer.n_samples1=4",
+        "renderer.n_bg_samples=4", "renderer.n_thetas=2", *extra])
+
+
+def _tiny_batches(conf, lead, device, seed=3):
+    B, R = conf.train.batch_size, conf.train.n_rays
+    rng = np.random.RandomState(seed)
+    camloc = np.tile(np.float32([0.1, -0.2, 2.5]), (*lead, B, 1))
+    raydir = rng.randn(*lead, B, R, 3).astype(np.float32) * 0.5
+    raydir[..., 2] -= 1.0
+    raydir /= np.linalg.norm(raydir, axis=-1, keepdims=True)
+    color = rng.rand(*lead, B, R, 3).astype(np.float32)
+    mask = (rng.rand(*lead, B, R, 1) < 0.7).astype(np.float32)
+    return [torch.from_numpy(a).to(device)
+            for a in (camloc, raydir, color, mask)]
+
+
+def _state(params, opt):
+    from ndjir_torch.train.optim import tree_leaves_with_path
+
+    return [t for tree in (params, opt["mu"], opt["nu"])
+            for _, t in tree_leaves_with_path(tree)] + [opt["count"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeds", ["fixed", "fresh"])
+def test_sharded_train_steps_replays_equal_eager_over_nccl(cuda, seeds,
+                                                           tmp_path):
+    """``train_steps`` with a ``ShardReducer`` over an NCCL group of one:
+    one warm-up step and a capture, then replays with the collectives in
+    the graph, bitwise equal to the eager sharded steps."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ndjir_torch.models.fields import init_model
+    from ndjir_torch.parallel.mesh import ShardReducer
+    from ndjir_torch.render.renderer import make_mc_cdfs
+    from ndjir_torch.train.graph import CapturedStep
+    from ndjir_torch.train.optim import init_optimizer
+    from ndjir_torch.train.trainer import train_step, train_steps
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        conf = _tiny_conf([f"renderer.fixed_graph_seeds="
+                           f"{str(seeds == 'fixed').lower()}"])
+        B, R, K = conf.train.batch_size, conf.train.n_rays, 5
+        batches = _tiny_batches(conf, (K,), cuda)
+        red = ShardReducer(None)
+        cdfs = make_mc_cdfs(conf, B, R, device=cuda) \
+            if seeds == "fixed" else None
+
+        def draw(g):
+            return make_mc_cdfs(conf, B, R, step=g, device=cuda)
+        sched = (0.5, 1.0, 1e-3, 1e-3)
+        p = init_model(conf, seed=0, device=cuda)
+        o = init_optimizer(p)
+        eager = [train_step(p, o, *(b[j] for b in batches), *sched, conf,
+                            cdfs=cdfs if cdfs is not None else draw(j),
+                            step=j, reducer=red) for j in range(K)]
+        q = init_model(conf, seed=0, device=cuda)
+        s = init_optimizer(q)
+        graph = CapturedStep(train_step, conf)
+        kernels.reset_launches()
+        mons = train_steps(q, s, *batches, *sched, 0, conf, cdfs=cdfs,
+                           graph=graph, reducer=red, step_cdfs=draw)
+        assert graph.captures == 1 and graph.replays == K - 1
+        assert kernels.LAUNCHES["scatter_add_rows"] == 2 * K
+        for a, b in zip(_state(q, s), _state(p, o)):
+            assert torch.equal(a, b)
+        for k in mons:
+            assert torch.equal(mons[k], torch.stack([m[k] for m in eager]))
+        graph.release()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_multi_scene_graph_equals_eager(cuda, tmp_path):
+    """``MultiSceneTrainer`` on the card (one captured iteration of both
+    scenes' steps, replayed) against a twin trainer's epochs run eagerly,
+    each iteration ``multi_scene_train_step`` on its ``next_batch()`` as
+    ``train_epoch`` runs it on the CPU, bitwise; one capture, one replay
+    an iteration after the first."""
+    from torch_parallel_worker import datasets
+
+    from ndjir_torch.parallel.multi_scene import (
+        MultiSceneTrainer,
+        multi_scene_train_step,
+    )
+    from ndjir_torch.train.graph import device_scalars
+    from ndjir_torch.train.trainer import epoch_schedule, fetch_monitors
+
+    def trainer(tag):
+        conf = _tiny_conf(["train.epoch=3", "train.warmup_term_ratio=0",
+                           "train.checkpoint_interval_epochs=0",
+                           f"monitor_base_path={tmp_path}/{tag}"])
+        return MultiSceneTrainer(conf, [f"{tmp_path}/s0", f"{tmp_path}/s1"],
+                                 datasets=datasets(conf, 2), device=cuda)
+    graphed, eager = trainer("graph"), trainer("eager")
+    graphed.train(epochs=2)
+    iters = min(ds.iters_per_epoch for ds in eager.datasets)
+    history = []
+    for e in range(2):
+        lr_w, lr_f, car, lvg = device_scalars(epoch_schedule(
+            e, eager.lr_w_base, eager.lr_f_base, eager.conf), eager.device)
+        for it in range(iters):
+            g = e * iters + it
+            cdfs = eager.cdfs if eager.cdfs is not None \
+                else eager._shard_cdfs(g)
+            history.append(fetch_monitors(multi_scene_train_step(
+                eager.params, eager.opt_states, *eager.next_batch(), car,
+                lvg, lr_w, lr_f, g, eager.conf, cdfs=cdfs,
+                reducer=eager.plan.row_reducer)))
+    assert graphed.history == history
+    assert graphed.graph.captures == 1
+    assert graphed.graph.replays == 2 * iters - 1
+    for i in range(2):
+        for a, b in zip(_state(graphed.params[i], graphed.opt_states[i]),
+                        _state(eager.params[i], eager.opt_states[i])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("beta", [1.0, 100.0])
+def test_softplus_grad_kernel_matches_plain_version(cuda, dtype, beta):
+    """The softplus first derivative's one-pass kernel (jiterator) against
+    its plain version (the fused op's backward, then the zeros), bitwise,
+    across the threshold, at +-0, NaN, +-inf and subnormals."""
+    from ndjir_torch.ops import activations
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1 << 16, generator=gen) * 0.3
+    x[:40] = torch.linspace(19.9 / beta, 20.1 / beta, 40)
+    x[40:48] = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                             -float("inf"), 1e-40, -1e-40, 1e-30])
+    g = torch.randn(x.shape, generator=gen)
+    g[100:104] = float("nan")
+    x, g = x.to(dtype).to(cuda), g.to(dtype).to(cuda)
+    got = activations._softplus_grad(g, x, beta)
+    want = activations._softplus_grad_plain(g, x, beta)
+    assert got.dtype == dtype
+    assert torch.equal(got.float().view(torch.int32),
+                       want.float().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_softplus_grad_refuses_a_dtype_without_kernel(cuda):
+    """On the card the softplus first derivative launches its kernel or
+    raises: float64 has no kernel, and g and x of two dtypes neither."""
+    from ndjir_torch.ops import activations
+
+    x = torch.linspace(-1, 1, 64, device=cuda)
+    with pytest.raises(TypeError):
+        activations._softplus_grad(x.double(), x.double(), 100.0)
+    with pytest.raises(TypeError):
+        activations._softplus_grad(x.bfloat16(), x, 100.0)

@@ -67,8 +67,8 @@ def _batches(nan_step=None):
 
 
 # a NaN colour reaches the gradients under the L2 colour loss; under L1
-# neither package's |x| passes it on (JAX's gradient there is -g, torch's
-# 0), so both take such a step
+# both packages' |x| pass the finite -g on at a NaN difference, so both
+# take such a step
 L2 = ["train.rgb_loss=l2"]
 
 

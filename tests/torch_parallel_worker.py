@@ -54,14 +54,14 @@ def step_inputs(conf, seed: int = 5):
     return [torch.from_numpy(a) for a in (camloc, raydir, color, mask)]
 
 
-def datasets(conf, n: int):
-    """``n`` in-memory sphere scenes of 4 views at 16x16, radius 0.5, 0.4,
-    ..., each its own dataset (with the same ray draws: each dataset seeds
-    its own generator)."""
+def datasets(conf, n: int, views: int = 4):
+    """``n`` in-memory sphere scenes of ``views`` views at 16x16, radius
+    0.5, 0.4, ..., each its own dataset (with the same ray draws: each
+    dataset seeds its own generator)."""
     out = []
     for i in range(n):
         images, masks, cameras = render_sphere_scene(
-            n_views=4, H=16, W=16, radius=0.5 - 0.1 * i)
+            n_views=views, H=16, W=16, radius=0.5 - 0.1 * i)
         out.append(IDRDataset(conf, images, masks, cameras, train=True,
                               shuffle=True))
     return out
