@@ -22,6 +22,7 @@ import torch
 from ndjir_torch.ops.ties import absolute, clip
 from ndjir_torch.render.renderer import make_mc_cdfs, pb_render
 from ndjir_torch.render.sampler import sample_points
+from ndjir_torch.utils.profiling import annotate
 
 
 def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
@@ -40,18 +41,30 @@ def total_loss(params, camloc, raydir, color_gt, obj_mask, cos_anneal_ratio,
     B*R]`` to their sums over all shards of the batch.
     """
     B, R, _ = color_gt.shape
+    with annotate("step.sample"):
+        if cdfs is None:
+            cdfs = make_mc_cdfs(conf, B, R, step=step, dtype=color_gt.dtype,
+                                device=color_gt.device)
+        x_fg, t_fg, x_bg, t_bg, mask = sample_points(
+            params, camloc, raydir, cdfs["stratified"], cdfs["background"],
+            conf, rand_u=cdfs["upsample"], proposal_grid=proposal_grid)
+    with annotate("step.render"):
+        res = pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
+                        cos_anneal_ratio, lv_gain, cdfs, conf)
+    with annotate("step.loss"):
+        return _loss_terms(res, color_gt, obj_mask, mask, x_fg.shape[2],
+                           conf, reduce_counts)
+
+
+def _loss_terms(res: Dict[str, torch.Tensor], color_gt, obj_mask, mask,
+                N: int, conf,
+                reduce_counts: Optional[Callable[[torch.Tensor],
+                                                 torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The nine weighted terms of :func:`total_loss` from ``pb_render``'s
+    outputs ``res`` and the sampler's ``mask`` of N samples a ray."""
+    B, R, _ = color_gt.shape
     tr = conf.train
-
-    if cdfs is None:
-        cdfs = make_mc_cdfs(conf, B, R, step=step, dtype=color_gt.dtype,
-                            device=color_gt.device)
-    x_fg, t_fg, x_bg, t_bg, mask = sample_points(
-        params, camloc, raydir, cdfs["stratified"], cdfs["background"], conf,
-        rand_u=cdfs["upsample"], proposal_grid=proposal_grid)
-    res = pb_render(params, x_fg, t_fg, x_bg, t_bg, camloc, raydir, mask,
-                    cos_anneal_ratio, lv_gain, cdfs, conf)
-
-    N = x_fg.shape[2]
     zero = torch.zeros((), dtype=color_gt.dtype, device=color_gt.device)
     n_obj, n_mask, n_rays = torch.sum(obj_mask), torch.sum(mask), B * R
     if reduce_counts is not None:

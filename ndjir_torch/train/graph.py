@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from ndjir_torch import kernels
 from ndjir_torch.train.optim import tree_leaves_with_path
+from ndjir_torch.utils.profiling import annotate
 
 
 def device_scalars(values: Sequence, device) -> List[torch.Tensor]:
@@ -208,7 +209,8 @@ class CapturedStep:
             if per_step and j > 0:
                 _copy(self.cdfs, step_cdfs(j))
             if self.graph is None:
-                vec = self._warm_up_and_capture(states)
+                with annotate("graph.capture"):
+                    vec = self._warm_up_and_capture(states)
             else:
                 self.graph.replay()
                 self.replays += 1

@@ -68,6 +68,7 @@ from ndjir_torch.utils.monitor import (
     MonitorTimeElapsed,
     logger,
 )
+from ndjir_torch.utils.profiling import annotate, set_step
 
 
 def loss_and_grads(params, camloc, raydir, color_gt, obj_mask,
@@ -85,8 +86,9 @@ def loss_and_grads(params, camloc, raydir, color_gt, obj_mask,
                                     cdfs=cdfs, step=step,
                                     proposal_grid=proposal_grid,
                                     reduce_counts=reduce_counts)
-        gs = torch.autograd.grad(loss, [p for _, p in leaves],
-                                 allow_unused=True)
+        with annotate("step.backward"):
+            gs = torch.autograd.grad(loss, [p for _, p in leaves],
+                                     allow_unused=True)
     finally:
         for _, p in leaves:
             p.requires_grad_(False)
@@ -124,8 +126,9 @@ def train_step(params, opt_state, camloc, raydir, color_gt, obj_mask,
         grads = reducer.grads(grads)
         monitors = reducer.monitors(monitors)
         group = reducer.group
-    monitors["grads_finite"] = apply_updates(
-        params, grads, opt_state, lr_weight, lr_feat, conf, group=group)
+    with annotate("step.update"):
+        monitors["grads_finite"] = apply_updates(
+            params, grads, opt_state, lr_weight, lr_feat, conf, group=group)
     return monitors
 
 
@@ -210,8 +213,10 @@ def fetch_monitors(mons) -> list:
     if not mons:
         return []
     names = list(mons[0])
-    cols = torch.stack([torch.cat([m[k].float().reshape(-1) for m in mons])
-                        for k in names]).cpu()
+    with annotate("train.fetch"):
+        cols = torch.stack([torch.cat([m[k].float().reshape(-1)
+                                       for m in mons])
+                            for k in names]).cpu()
     return [{k: bool(v) if k == "grads_finite" else float(v)
              for k, v in zip(names, row)} for row in cols.t().tolist()]
 
@@ -401,15 +406,17 @@ class Trainer:
 
     def next_batch(self):
         """One training batch on the device: (camloc, raydir, color, mask)."""
-        return stage(self._host_batch(), self.device)
+        with annotate("train.batch", steps=1):
+            return stage(self._host_batch(), self.device)
 
     def next_batches(self, k: int):
         """The next ``k`` training batches on the device, stacked (k, ...)
         and staged in one copy, as the JAX trainer stages a call's; this
         rank's shard of each (``ShardingPlan.shard_batch_steps``)."""
-        bs = [self._host_batch() for _ in range(k)]
-        return self.plan.shard_batch_steps(
-            *stage([np.stack(a) for a in zip(*bs)], self.device))
+        with annotate("train.batch", steps=k):
+            bs = [self._host_batch() for _ in range(k)]
+            return self.plan.shard_batch_steps(
+                *stage([np.stack(a) for a in zip(*bs)], self.device))
 
     def step_cdfs(self, gstep: int):
         """This rank's Monte-Carlo uniforms for global step ``gstep``."""
@@ -431,44 +438,75 @@ class Trainer:
         multiple of ``renderer.proposal_refresh_interval`` and starts a
         call (:func:`call_chunks`), as in the JAX package.  A call of k > 1
         steps goes through :func:`train_steps` (the captured step on the
-        card), sharded or not."""
+        card), sharded or not.  Under a profiler each epoch records the
+        spans of :mod:`ndjir_torch.utils.profiling` (``train.epoch`` and
+        its phases)."""
         conf = self.conf
         E = conf.train.epoch
         stop = E if stop_epoch is None else min(stop_epoch, E)
+        main = self.plan.is_main
+        for epoch in range(self.start_epoch, stop):
+            set_step(epoch * self.ds.iters_per_epoch)
+            with annotate("train.epoch"):
+                self._train_epoch(epoch)
+        self.start_epoch = stop
+        if stop == E and main:
+            with annotate("train.checkpoint"):
+                save_checkpoint(self.ckpt_dir, E - 1, self.params,
+                                self.opt_state,
+                                keep=conf.train.keep_checkpoints)
+            if not conf.valid.skip:
+                with annotate("train.validate"):
+                    self.validate(E - 1, final=True)
+        return self.params
+
+    def _train_epoch(self, epoch: int) -> None:
+        """One epoch of :meth:`train`: the validation due at its top, its
+        calls, the one fetch of its monitors, their series and log line,
+        and the checkpoint due after it."""
+        conf = self.conf
         every = conf.train.checkpoint_interval_epochs
         iters = self.ds.iters_per_epoch
         main = self.plan.is_main
         reducer = self.plan.reducer
-        for epoch in range(self.start_epoch, stop):
-            if (epoch != 0 and conf.valid.epoch_interval > 0
-                    and epoch % conf.valid.epoch_interval == 0
-                    and not conf.valid.skip and main):
+        if (epoch != 0 and conf.valid.epoch_interval > 0
+                and epoch % conf.valid.epoch_interval == 0
+                and not conf.valid.skip and main):
+            with annotate("train.validate"):
                 self.validate(epoch)
 
+        with annotate("train.schedule"):
             lr_w, lr_f, car, lvg = device_scalars(
                 epoch_schedule(epoch, self.lr_w_base, self.lr_f_base, conf),
                 self.device)
-            epoch_mons = []
-            for it0, k in call_chunks(conf, iters):
-                g0 = epoch * iters + it0
-                if self.coarse_grid and g0 % refresh_interval(conf) == 0:
-                    self.proposal_grid = make_proposal_grid(self.params,
-                                                            conf)
-                if k > 1:
+        epoch_mons = []
+        for it0, k in call_chunks(conf, iters):
+            g0 = epoch * iters + it0
+            set_step(g0)
+            if self.coarse_grid and g0 % refresh_interval(conf) == 0:
+                self.proposal_grid = make_proposal_grid(self.params, conf)
+            if k > 1:
+                batches = self.next_batches(k)
+                with annotate("train.call", steps=k):
                     epoch_mons.append(train_steps(
-                        self.params, self.opt_state, *self.next_batches(k),
-                        car, lvg, lr_w, lr_f, g0, conf, cdfs=self.cdfs,
+                        self.params, self.opt_state, *batches, car, lvg,
+                        lr_w, lr_f, g0, conf, cdfs=self.cdfs,
                         proposal_grid=self.proposal_grid, graph=self.graph,
                         reducer=reducer, step_cdfs=self.step_cdfs))
-                    continue
-                for j in range(k):
-                    batch = self.plan.shard_batch(*self.next_batch())
+                continue
+            for j in range(k):
+                set_step(g0 + j)
+                batch = self.next_batch()
+                with annotate("train.step", steps=1):
                     epoch_mons.append(train_step(
-                        self.params, self.opt_state, *batch, car, lvg, lr_w,
-                        lr_f, conf, cdfs=self.step_cdfs(g0 + j), step=g0 + j,
+                        self.params, self.opt_state,
+                        *self.plan.shard_batch(*batch), car, lvg, lr_w, lr_f,
+                        conf, cdfs=self.step_cdfs(g0 + j), step=g0 + j,
                         proposal_grid=self.proposal_grid, reducer=reducer))
 
-            for it, m in enumerate(fetch_monitors(epoch_mons)):
+        fetched = fetch_monitors(epoch_mons)
+        with annotate("train.monitors"):
+            for it, m in enumerate(fetched):
                 self.history.append(m)
                 if not main:
                     continue
@@ -483,14 +521,8 @@ class Trainer:
                                            self.history[-iters:]]))
                 logger.info(f"epoch {epoch}: loss={mean_loss:.6g}")
                 self.monitor_time.add(epoch)
-                if every > 0 and (epoch + 1) % every == 0:
-                    save_checkpoint(self.ckpt_dir, epoch, self.params,
-                                    self.opt_state,
-                                    keep=conf.train.keep_checkpoints)
-        self.start_epoch = stop
-        if stop == E and main:
-            save_checkpoint(self.ckpt_dir, E - 1, self.params,
-                            self.opt_state, keep=conf.train.keep_checkpoints)
-            if not conf.valid.skip:
-                self.validate(E - 1, final=True)
-        return self.params
+        if main and every > 0 and (epoch + 1) % every == 0:
+            with annotate("train.checkpoint"):
+                save_checkpoint(self.ckpt_dir, epoch, self.params,
+                                self.opt_state,
+                                keep=conf.train.keep_checkpoints)

@@ -549,3 +549,82 @@ def test_softplus_grad_refuses_a_dtype_without_kernel(cuda):
         activations._softplus_grad(x.double(), x.double(), 100.0)
     with pytest.raises(TypeError):
         activations._softplus_grad(x.bfloat16(), x, 100.0)
+
+
+_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+
+
+@pytest.mark.cuda
+def test_spans_hold_their_launches_under_a_cuda_only_profiler(cuda,
+                                                              monkeypatch):
+    """A profiler of the card's activity alone, as the benchmark's traced
+    window runs it, still turns the spans on; the runtime calls that
+    launched the kernels of a span lie within it on the profiler's
+    clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndjir_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_SPANS", [])
+    x = torch.randn(1 << 20, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert torch.autograd._profiler_enabled()
+        x.cos()
+        with profiling.annotate("outer", steps=1):
+            with profiling.annotate("inner"):
+                for _ in range(4):
+                    x.sin()
+            x.exp()
+        torch.cuda.synchronize()
+    inner, outer = profiling.spans()
+    assert inner.parent_id == outer.span_id and outer.counts == {"steps": 1}
+    events = list(prof.profiler.kineto_results.events())
+    kernels = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "Memset" not in e.name() and "Memcpy" not in e.name()]
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in events if e.name() in _LAUNCHES]
+    assert len(kernels) == len(launches) == 6
+
+    def within(s):
+        return sum(s.start_ns <= a and b <= s.end_ns for a, b in launches)
+    assert (within(inner), within(outer)) == (4, 5)
+
+
+@pytest.mark.cuda
+def test_train_steps_records_one_capture_and_its_calls(cuda, tmp_path,
+                                                       monkeypatch):
+    """The ``Trainer`` at ``steps_per_call`` 4 under a profiler of the
+    card's activity alone: one ``graph.capture`` (the warm-up step and
+    the captured one, five phases each) inside the first ``train.call``,
+    whose ``steps`` add up to the epochs' steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndjir_torch.data.dataset import IDRDataset
+    from ndjir_torch.data.synthetic import render_sphere_scene
+    from ndjir_torch.train.trainer import Trainer
+    from ndjir_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_SPANS", [])
+    conf = _tiny_conf(["train.epoch=3", "train.steps_per_call=4",
+                       "train.checkpoint_interval_epochs=0",
+                       f"monitor_base_path={tmp_path}/m"])
+    images, masks, cameras = render_sphere_scene(n_views=16, H=16, W=16)
+    ds = IDRDataset(conf, images, masks, cameras, train=True, shuffle=True)
+    tr = Trainer(conf, dataset=ds, device=cuda, seed=0)
+    iters = ds.iters_per_epoch
+    assert iters == 8
+    with profile(activities=[ProfilerActivity.CUDA]):
+        tr.train(stop_epoch=2)
+    spans = profiling.spans()
+    calls = [s for s in spans if s.name == "train.call"]
+    (capture,) = [s for s in spans if s.name == "graph.capture"]
+    assert tr.graph.captures == 1 and len(tr.history) == 2 * iters
+    assert len(calls) == 4 and sum(s.counts["steps"] for s in calls) == 16
+    assert [s.step for s in calls] == [0, 4, 8, 12]
+    assert capture.parent_id == calls[0].span_id
+    phases = [s.name for s in spans if s.parent_id == capture.span_id]
+    assert phases == ["step.sample", "step.render", "step.loss",
+                      "step.backward", "step.update"] * 2
+    assert not [s for s in spans if s.name == "train.step"]

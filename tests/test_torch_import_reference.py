@@ -204,19 +204,6 @@ def test_trace_default_directory(tmp_path, monkeypatch):
     assert os.path.getsize(os.path.join(logdir, TRACE_FILE)) > 0
 
 
-def test_watch_etime_returns_the_value(caplog):
-    from ndjir_torch.utils.profiling import watch_etime
-
-    @watch_etime
-    def add(a, b=1):
-        return a + b
-
-    with caplog.at_level("INFO", logger="ndjir_torch"):
-        assert add(2, b=3) == 5
-    assert add.__name__ == "add"
-    assert "Elapsed time (add)" in caplog.text
-
-
 def test_runtime_has_no_compilation_cache():
     """The port compiles no graph: no cache to set up (the kernels' build
     directory is its cache); device_kind names the card."""
