@@ -111,6 +111,12 @@ other grid encodings' presets through training and the command line
               snapshot, fresh uniforms, rematerialized heads, all on) at
               the default widths through ``train_steps`` for one epoch,
               replay against eager.
+14. lanczos -- the Lanczos-voxel query's gather kernel: the four no-grad
+              queries of one real training step's proposal sampler in the
+              ``custom`` preset (lanczos_voxel G=512 D=4), kernel against
+              the composite bitwise, repeated, timed beside the composite
+              and the bytes bound; the launches of that step (4 gathers,
+              3 B1) and of one default step (no gather).
 
 Monitor files, rendered images, environment maps, the tools' views and the
 full profiles go to ``--out`` (default ``chip_smoke_out/``); the meshes,
@@ -169,9 +175,9 @@ OCTA_ROWS = OCTA_G ** 3
 # kernel launches one training step makes, per path
 STEP_LAUNCHES = {
     "default": {"scatter_add_rows": 2, "fold_octa_cotangent": 0,
-                "build_octa_table": 0},
+                "build_octa_table": 0, "lanczos_voxel_gather": 0},
     "g256_bf16": {"scatter_add_rows": 1, "fold_octa_cotangent": 1,
-                  "build_octa_table": 0}}
+                  "build_octa_table": 0, "lanczos_voxel_gather": 0}}
 # octa table builds per render_image or extract call, per path
 BUILDS_PER_CALL = {"default": 0, "g256_bf16": 1}
 
@@ -1707,6 +1713,10 @@ ENCODINGS = {
 # the CPU)
 GRID_ROWS = {"custom": (0.003, 0.01), "triplaneline": (0.1, 0.0003),
              "voxel_hash": (0.03, 0.0)}
+# launches of the Lanczos gather a training step makes, per preset: the
+# proposal sampler's four no-grad queries of a lanczos_voxel grid (64
+# stratified samples, then three rounds of 16)
+GATHERS_PER_STEP = {"custom": 4, "triplaneline": 0, "voxel_hash": 0}
 
 
 def step_scatters(torch, scatter, trainer):
@@ -1767,7 +1777,8 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
 
     launches, epoch_ms, peak = train_phase(
         torch, kernels, trainer, card_name,
-        dict(dict.fromkeys(kernels.SOURCES, 0), scatter_add_rows=len(want)))
+        dict(dict.fromkeys(kernels.SOURCES, 0), scatter_add_rows=len(want),
+             lanczos_voxel_gather=GATHERS_PER_STEP[preset]))
     ms_step = epoch_ms[-1] / trainer.ds.iters_per_epoch
     log("encodings", f"{preset} ({grid_type}): launches {launches}; epoch 2 "
         f"{ms_step:.1f} ms/step (host clock, synchronized); peak memory "
@@ -1843,7 +1854,8 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
         base = ["--config-name", preset, f"monitor_base_path={mon}"]
         run(path, "train", base + [f"data_path={scene}", "train.epoch=1",
                                    "valid.skip=true"],
-            {"scatter_add_rows": 4 * len(per_step)})
+            {"scatter_add_rows": 4 * len(per_step),
+             "lanczos_voxel_gather": 4 * GATHERS_PER_STEP[preset]})
         losses = read_series(os.path.join(f"{mon}_scan1",
                                           "Training-loss.series.txt"))
         if len(losses) != 4:
@@ -3182,6 +3194,110 @@ def graph_phase(torch, kernels, card_name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the Lanczos-voxel query's gather kernel
+# ---------------------------------------------------------------------------
+
+def lanczos_phase(torch, kernels, grid, card_name):
+    """The custom recipe's (lanczos_voxel, G=512, D=4) grid queries that
+    build no graph: the four of one real training step's proposal sampler,
+    kept while the step runs, whose launches must be exactly 4 gathers and
+    3 B1; each query's kernel against the composite on the step's table,
+    bitwise, and both timed (device events over back-to-back calls, the
+    table warm in L2 as far as it fits) beside the kernel's bound, the
+    bytes one read of its rows, points and outputs takes.  Then one step of
+    the default recipe, whose launches must hold no gather."""
+    from ndjir_torch.train.trainer import loss_and_grads
+
+    def one_step(trainer):
+        kernels.reset_launches()
+        loss_and_grads(trainer.params, *trainer.next_batch(), 0.0, 1.0,
+                       trainer.conf, cdfs=trainer.cdfs)
+        torch.cuda.synchronize()
+        return dict(kernels.LAUNCHES)
+
+    none = dict.fromkeys(kernels.SOURCES, 0)
+    trainer = make_trainer(torch, tag="monitor_lanczos", config="custom")
+    queries, real = [], grid.lanczos_voxel_gather
+
+    def keep(x, table, vmin, vmax):
+        queries.append((x.clone(), vmin, vmax))
+        return real(x, table, vmin, vmax)
+    grid.lanczos_voxel_gather = keep
+    try:
+        custom_step = one_step(trainer)
+    finally:
+        grid.lanczos_voxel_gather = real
+    want = dict(none, scatter_add_rows=3, lanczos_voxel_gather=4)
+    if custom_step != want:
+        raise AssertionError(f"custom step: launches {custom_step}, want "
+                             f"{want}")
+    conf = trainer.conf
+    rays = (conf.train.batch_size, conf.train.n_rays)
+    shapes = [tuple(x.shape) for x, _, _ in queries]
+    want_shapes = [(*rays, conf.renderer.n_samples0, 3)] + \
+        [(*rays, conf.renderer.n_samples1, 3)] * 3
+    if shapes != want_shapes:
+        raise AssertionError(f"sampler queries {shapes}, want {want_shapes}")
+
+    table = trainer.params["geometric-network"]["grid"]["F"].detach()
+    D = table.shape[-1]
+    mem_rate, _ = card_peaks(card_name)
+    timed = []
+    with torch.no_grad():
+        for i, (x, vmin, vmax) in enumerate(queries):
+            got = real(x, table, vmin, vmax)
+            want = grid._query_voxel_lanczos_composite(x, table, vmin, vmax,
+                                                       2)
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                diff = (got - want).abs().max().item()
+                raise AssertionError(f"query {i} {shapes[i]}: the kernel "
+                                     f"is not the composite bitwise (max "
+                                     f"abs difference {diff:.3g})")
+            if not torch.equal(real(x, table, vmin, vmax), got):
+                raise AssertionError(f"query {i}: not repeatable bitwise")
+            if i > 1:
+                continue   # the last three queries share one shape
+            n = x.numel() // 3
+            n_bytes = n * (64 * D * 4 + 12 + D * 4)
+            r = dict(shape=shapes[i], points=n,
+                     ms=cuda_ms(torch, lambda: real(x, table, vmin, vmax)),
+                     plain_ms=cuda_ms(
+                         torch, lambda: grid._query_voxel_lanczos_composite(
+                             x, table, vmin, vmax, 2)),
+                     bound_ms=1e3 * n_bytes / mem_rate, bytes=n_bytes)
+            timed.append(r)
+            log("lanczos", f"sampler query {shapes[i]} on the "
+                f"{tuple(table.shape)} table: kernel {r['ms']:.4f} ms, "
+                f"composite {r['plain_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({n_bytes} B at {mem_rate:.3g} "
+                f"B/s); bitwise equal, repeatable")
+    del queries, table, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = make_trainer(torch, tag="monitor_lanczos_default")
+    default_step = one_step(trainer)
+    want = dict(none, scatter_add_rows=2)
+    if default_step != want:
+        raise AssertionError(f"default step: launches {default_step}, want "
+                             f"{want}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("lanczos", f"launches of one eager step: custom {custom_step}, "
+        f"default {default_step} ({card_name})")
+    return dict(name="lanczos_voxel_gather", route="cuda",
+                source="ndjir_torch/csrc/lanczos_voxel_gather.cu",
+                replaces=None, max_abs_err=0.0, bitwise_repeatable=True,
+                ms=timed[0]["ms"], plain_ms=timed[0]["plain_ms"],
+                bound_ms=timed[0]["bound_ms"], bound_by="bytes",
+                library_ms=None, at_shapes=timed,
+                step_launches={"custom": custom_step,
+                               "default": default_step})
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3338,11 +3454,15 @@ def main() -> int:
     opt_launches.update(graph_phase(torch, kernels, card_name))
     log("graph", f"done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    lanczos_record = lanczos_phase(torch, kernels, grid, card_name)
+    log("lanczos", f"done in {time.perf_counter() - t0:.1f} s")
+
     # main-path launches: the training steps' and the render, validation
     # and extraction calls', then each command's of the command line, then
     # phase 11's training paths', phase 12's step from the imported
     # checkpoint and phase 13's captured steps
-    records = [scatter_record, fold_record, build_record]
+    records = [scatter_record, fold_record, build_record, lanczos_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],
                           "render_validate_extract": rendered[path][r["name"]]}

@@ -29,6 +29,11 @@ the scatter kernel (B1).  The dense voxel has two more branches:
 The reference's z-dup and packed layouts exist for XLA on a TPU and give
 the 8-corner numbers; the port does not have them.
 
+A dense Lanczos query on the card that builds no autograd graph (the
+proposal sampler's, ``render_image``'s and an extraction's) gathers nothing
+through :class:`GatherRows`: it is one launch of the Lanczos gather kernel
+(:mod:`ndjir_torch.ops.lanczos_gather`), which gives the composite's bits.
+
 Interpolation weights:
   linear : w0 = x1 - x                        (voxel_feature_cuda.cu)
   cosine : w0 = 0.5 cos(pi (x - x0)) + 0.5    (cosine_voxel_feature_cuda.cu:65)
@@ -50,6 +55,10 @@ from torch.autograd.function import once_differentiable
 
 from ndjir_torch.ops.consts import device_const
 from ndjir_torch.ops.fold import fold_octa_cotangent
+from ndjir_torch.ops.lanczos_gather import (
+    lanczos_voxel_gather,
+    sums_in_warps,
+)
 from ndjir_torch.ops.lattice import (
     _PLANE_AXES,
     DEFAULT_MAX,
@@ -384,7 +393,25 @@ def query_voxel_lanczos(x: torch.Tensor, feature: torch.Tensor,
                         vmin: Vec3 = DEFAULT_MIN, vmax: Vec3 = DEFAULT_MAX,
                         a: int = 2) -> torch.Tensor:
     """Lanczos-a dense-grid query, (2a)^3 taps: (..., 3) -> (..., D)
-    (reference grid.py:827)."""
+    (reference grid.py:827).  A call on the card that builds no autograd
+    graph (grad mode off, or neither ``x`` nor ``feature`` requiring grad)
+    with f32 points and table, a = 2 and N*D outputs that PyTorch sums in
+    the kernel's order is one launch of the gather kernel
+    (:func:`~ndjir_torch.ops.lanczos_gather.lanczos_voxel_gather`), which
+    gives the same bits; every other call takes the composite."""
+    if x.is_cuda and a == 2 and x.dtype == feature.dtype == torch.float32 \
+            and sums_in_warps(x.numel() // 3 * feature.shape[-1]) \
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or feature.requires_grad)):
+        return lanczos_voxel_gather(x, feature, vmin, vmax)
+    return _query_voxel_lanczos_composite(x, feature, vmin, vmax, a)
+
+
+def _query_voxel_lanczos_composite(x: torch.Tensor, feature: torch.Tensor,
+                                   vmin: Vec3, vmax: Vec3, a: int
+                                   ) -> torch.Tensor:
+    """:func:`query_voxel_lanczos` as PyTorch ops, differentiable in ``x``
+    (twice) and in ``feature``."""
     Gx, Gy, Gz, D = feature.shape
     g1 = _vec([Gx - 1, Gy - 1, Gz - 1], x)
     xyz = _to_grid(x, g1, _vec(vmin, x), _vec(vmax, x))
