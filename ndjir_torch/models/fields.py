@@ -36,6 +36,7 @@ from ndjir_torch.ops.grid import (
 )
 from ndjir_torch.ops.octa_build import build_octa_table
 from ndjir_torch.ops.ties import clip
+from ndjir_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
 
@@ -379,14 +380,17 @@ def with_octa_table(params: Params, conf) -> Params:
     does (grid.py:548).  ``params`` itself when the grid does not take the
     octa layout (:func:`geometric_supports_shared_gather`; an f32 grid
     never does) or already carries its table.  The copy holds the only
-    reference to the table, so it is freed with the copy."""
+    reference to the table, so it is freed with the copy.  The build is
+    the program span ``grid.octa_build``, carrying the table's ``rows``."""
     geo = params.get("geometric-network", {})
     if not geometric_supports_shared_gather(geo, conf) \
             or "octa_table" in geo["grid"]:
         return params
     grid = geo["grid"]
-    with torch.no_grad():
-        table = build_octa_table(grid["F"])
+    F = grid["F"]
+    with torch.no_grad(), annotate("grid.octa_build",
+                                   rows=F.numel() // F.shape[-1]):
+        table = build_octa_table(F)
     geo = dict(geo, grid=dict(grid, octa_table=table))
     return dict(params, **{"geometric-network": geo})
 

@@ -74,6 +74,7 @@ from ndjir_torch.ops.lattice import (
 )
 from ndjir_torch.ops.scatter import gather_rows, scatter_add_rows_t
 from ndjir_torch.ops.tv_loss import grid_tv_loss, tv_sqrt
+from ndjir_torch.utils.profiling import annotate
 
 
 def _weights(xyz: torch.Tensor, xyz0: torch.Tensor, xyz1: torch.Tensor,
@@ -179,24 +180,28 @@ class GatherRowsOcta(torch.autograd.Function):
     reference's ``gather_rows_octa`` (grid.py:514).  Forward: the 8 clamped
     corners of each row gathered from the base table, a pure copy.
     Backward: B1 into the transposed (8D, G^3) f32 cotangent, then the fold
-    (B2), rounded once to the cotangent's dtype (grid.py:555-562)."""
+    (B2), rounded once to the cotangent's dtype (grid.py:555-562).  Each
+    direction is a program span (``grid.octa_gather``,
+    ``grid.octa_backward``) carrying its ``rows``."""
 
     @staticmethod
     def forward(ctx, base: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         D = base.shape[-1]
         ctx.save_for_backward(ids)
         ctx.gshape = tuple(base.shape)
-        corners = octa_corner_ids(ids, base.shape)
-        return base.reshape(-1, D).index_select(0, corners.reshape(-1)) \
-            .reshape(ids.shape[0], 8 * D)
+        with annotate("grid.octa_gather", rows=ids.shape[0]):
+            corners = octa_corner_ids(ids, base.shape)
+            return base.reshape(-1, D).index_select(
+                0, corners.reshape(-1)).reshape(ids.shape[0], 8 * D)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g: torch.Tensor):
         (ids,) = ctx.saved_tensors
         Gx, Gy, Gz, _ = ctx.gshape
-        cot_t = scatter_add_rows_t(ids, g, Gx * Gy * Gz)
-        return fold_octa_cotangent(cot_t, ctx.gshape, g.dtype), None
+        with annotate("grid.octa_backward", rows=ids.shape[0]):
+            cot_t = scatter_add_rows_t(ids, g, Gx * Gy * Gz)
+            return fold_octa_cotangent(cot_t, ctx.gshape, g.dtype), None
 
 
 def gather_octa_table(octa_table: torch.Tensor, ids: torch.Tensor,

@@ -1,7 +1,8 @@
 """The port's spans (``ndjir_torch/utils/profiling.py``): off and shared
 outside a profiler; under one, nested spans with their parent, step and
 counts on the profiler's clock; the trainer's loop and step recorded per
-epoch, eagerly and in calls of two steps; the Chrome trace of
+epoch, eagerly and in calls of two steps; the octa grid's gather, backward
+and table build at the production precision; the Chrome trace of
 ``profiling.trace()`` holding them (CPU, ``tiny_test`` widths)."""
 
 import json
@@ -84,12 +85,12 @@ def test_an_op_inside_a_span_lies_within_it():
         assert e.start_ns() + e.duration_ns() <= s.end_ns
 
 
-def _trainer(tmp_path, spc):
+def _trainer(tmp_path, spc, extra=()):
     conf = load_config("tiny_test", overrides=[
         "valid.skip=true", "data_path=synthetic/sphere", "train.epoch=3",
         "train.n_rays=16", "train.checkpoint_interval_epochs=0",
         f"train.steps_per_call={spc}",
-        f"monitor_base_path={tmp_path}/spc{spc}"])
+        f"monitor_base_path={tmp_path}/spc{spc}", *extra])
     images, masks, cameras = render_sphere_scene(n_views=8, H=16, W=16)
     ds = IDRDataset(conf, images, masks, cameras, train=True, shuffle=True)
     return Trainer(conf, dataset=ds, device="cpu", seed=0)
@@ -138,6 +139,54 @@ def test_trainer_outside_a_profiler_records_nothing(tmp_path):
     tr = _trainer(tmp_path, 1)
     tr.train(stop_epoch=1)
     assert profiling.spans() == [] and len(tr.history) == 4
+
+
+BF16 = ("precision.mlp_dtype=bfloat16", "precision.grid_dtype=bfloat16")
+
+
+def test_octa_grid_spans_at_the_production_precision(tmp_path):
+    """A bf16 grid in the octa layout, eager steps: outside a profiler
+    nothing is recorded; under one, each step records one
+    ``grid.octa_gather`` in ``step.render`` (x_fg and x_ptb in one
+    gather) and one ``grid.octa_backward`` (B1 then B2) in
+    ``step.backward``, both with the rows B R N x 2, and the proposal
+    sampler's no-grad gathers in ``step.sample``, B R n0 rows and then
+    B R n1 a round; ``with_octa_table`` records one ``grid.octa_build``
+    with the table's G^3 rows."""
+    from ndjir_torch.models.fields import (
+        geometric_supports_shared_gather,
+        with_octa_table,
+    )
+    tr = _trainer(tmp_path, 1, BF16)
+    c = tr.conf
+    assert geometric_supports_shared_gather(
+        tr.params["geometric-network"], c)
+    tr.train(stop_epoch=1)
+    assert profiling.spans() == []
+    with cpu_profile():
+        tr.train(stop_epoch=2)
+    spans = profiling.spans()
+    by_id = {s.span_id: s for s in spans}
+    rays = c.train.batch_size * c.train.n_rays
+    r = c.renderer
+    n = r.n_samples0 + r.n_upsamples * r.n_samples1
+    proposal = [rays * r.n_samples0] \
+        + [rays * r.n_samples1] * (r.n_upsamples - 1)
+    steps = list(range(tr.ds.iters_per_epoch, 2 * tr.ds.iters_per_epoch))
+    for step in steps:
+        mine = [(s.name, by_id[s.parent_id].name, s.counts) for s in spans
+                if s.step == step and s.name.startswith("grid.")]
+        assert mine == [("grid.octa_gather", "step.sample", {"rows": k})
+                        for k in proposal] + [
+            ("grid.octa_gather", "step.render", {"rows": 2 * rays * n}),
+            ("grid.octa_backward", "step.backward", {"rows": 2 * rays * n})]
+    G = c.geometric_network.voxel.grid_size
+    with_octa_table(tr.params, c)
+    assert not any(s.name == "grid.octa_build" for s in profiling.spans())
+    with cpu_profile():
+        with_octa_table(tr.params, c)
+    (build,) = [s for s in profiling.spans() if s.name == "grid.octa_build"]
+    assert build.counts == {"rows": G ** 3}
 
 
 def test_chrome_trace_holds_the_spans(tmp_path):
