@@ -117,6 +117,13 @@ other grid encodings' presets through training and the command line
               the composite bitwise, repeated, timed beside the composite
               and the bytes bound; the launches of that step (4 gathers,
               3 B1) and of one default step (no gather).
+15. adam   -- the dual-Adam kernel pair at the default tree's widths (86
+              f32 leaves, the G=512 table): ``apply_updates`` against
+              ``apply_updates_plain`` (PyTorch's passes) bitwise over two
+              steps and a skipped one between them (signed zeros kept),
+              exactly 2 launches a step; both timed by CUDA events, issued
+              eagerly and replayed from a CUDA graph, beside the bytes
+              bound (9 floats an element).
 
 Monitor files, rendered images, environment maps, the tools' views and the
 full profiles go to ``--out`` (default ``chip_smoke_out/``); the meshes,
@@ -173,11 +180,16 @@ OCTA_N, OCTA_D, OCTA_G = 2 * 4 * 512 * 128, 4, 256
 OCTA_ROWS = OCTA_G ** 3
 
 # kernel launches one training step makes, per path
+# (the dual-Adam kernel pair: 2 a step, the f32 leaves; the bf16 table of
+# g256_bf16 takes PyTorch's passes)
+ADAM_PER_STEP = 2
 STEP_LAUNCHES = {
     "default": {"scatter_add_rows": 2, "fold_octa_cotangent": 0,
-                "build_octa_table": 0, "lanczos_voxel_gather": 0},
+                "build_octa_table": 0, "lanczos_voxel_gather": 0,
+                "adam_update": ADAM_PER_STEP},
     "g256_bf16": {"scatter_add_rows": 1, "fold_octa_cotangent": 1,
-                  "build_octa_table": 0, "lanczos_voxel_gather": 0}}
+                  "build_octa_table": 0, "lanczos_voxel_gather": 0,
+                  "adam_update": ADAM_PER_STEP}}
 # octa table builds per render_image or extract call, per path
 BUILDS_PER_CALL = {"default": 0, "g256_bf16": 1}
 
@@ -1557,7 +1569,8 @@ def cli_commands(torch, np, kernels, smi, root):
             "train.epoch=3", "train.warmup_term_ratio=7.5",
             "valid.skip=false", "valid.epoch_interval=0",
             "valid.index=0", f"valid.dtumvs.ref_dir={ref}", *CLI_CHAMFER,
-            *CLI_EXTRACT], {"scatter_add_rows": 24})
+            *CLI_EXTRACT], {"scatter_add_rows": 24,
+                            "adam_update": 12 * ADAM_PER_STEP})
     finally:
         timer.restore()
         load_timer.restore()
@@ -1636,7 +1649,8 @@ def cli_commands(torch, np, kernels, smi, root):
     prod = ["--config-name", "default", f"monitor_base_path={mon}", *OCTA]
     run("cli_g256_bf16", "train", prod + [
         f"data_path={scene}", "train.epoch=1", "valid.skip=true"],
-        {"scatter_add_rows": 4, "fold_octa_cotangent": 4})
+        {"scatter_add_rows": 4, "fold_octa_cotangent": 4,
+         "adam_update": 4 * ADAM_PER_STEP})
     ck = os.path.join(monitor, "checkpoints")
     two = os.path.join(root, "two_views", "scan1")
     cli.main(["make-synthetic", two, "2", str(CLI_RES), str(CLI_RES)])
@@ -1778,7 +1792,8 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
     launches, epoch_ms, peak = train_phase(
         torch, kernels, trainer, card_name,
         dict(dict.fromkeys(kernels.SOURCES, 0), scatter_add_rows=len(want),
-             lanczos_voxel_gather=GATHERS_PER_STEP[preset]))
+             lanczos_voxel_gather=GATHERS_PER_STEP[preset],
+             adam_update=ADAM_PER_STEP))
     ms_step = epoch_ms[-1] / trainer.ds.iters_per_epoch
     log("encodings", f"{preset} ({grid_type}): launches {launches}; epoch 2 "
         f"{ms_step:.1f} ms/step (host clock, synchronized); peak memory "
@@ -1855,7 +1870,8 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
         run(path, "train", base + [f"data_path={scene}", "train.epoch=1",
                                    "valid.skip=true"],
             {"scatter_add_rows": 4 * len(per_step),
-             "lanczos_voxel_gather": 4 * GATHERS_PER_STEP[preset]})
+             "lanczos_voxel_gather": 4 * GATHERS_PER_STEP[preset],
+             "adam_update": 4 * ADAM_PER_STEP})
         losses = read_series(os.path.join(f"{mon}_scan1",
                                           "Training-loss.series.txt"))
         if len(losses) != 4:
@@ -2232,6 +2248,7 @@ def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
     steps = epochs * iters
     want = dict.fromkeys(kernels.SOURCES, 0)
     want["scatter_add_rows"] = 2 * S * steps
+    want["adam_update"] = ADAM_PER_STEP * S * steps
     if launches != want:
         raise AssertionError(f"multi-scene launches {launches}, want {want}")
     if graph.captures != captures or graph.replays - replays != steps:
@@ -3298,6 +3315,121 @@ def lanczos_phase(torch, kernels, grid, card_name):
                                "default": default_step})
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dual-Adam kernel pair
+# ---------------------------------------------------------------------------
+
+def graph_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` captured once in a CUDA graph (after one
+    eager warm-up on a side stream) and replayed ``reps`` times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(torch, graph.replay, reps)
+    del graph
+    return ms
+
+
+def adam_phase(torch, kernels, card_name):
+    """The optimizer over the default tree at G=512 with nonzero moments,
+    signed zeros and random gradients: three steps (the second's gradient
+    holding a NaN, so it skips) through ``apply_updates`` and through
+    ``apply_updates_plain`` on copies, bitwise equal, 2 kernel launches a
+    step; then both paths timed on the tree, eagerly and replayed."""
+    from ndjir_torch.config import load_config
+    from ndjir_torch.models.fields import init_model
+    from ndjir_torch.train import optim
+
+    conf = load_config("default")
+    params = init_model(conf, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+
+    def draw(scale):
+        return optim.tree_map(lambda p: scale * torch.randn(
+            p.shape, generator=gen, device="cuda"), params)
+
+    def clone(tree):
+        return optim.tree_map(lambda t: t.clone(), tree)
+    state = optim.init_optimizer(params)
+    state["mu"] = draw(1e-2)
+    state["nu"] = optim.tree_map(torch.abs, draw(1e-2))
+    for tree in (params, state["mu"]):
+        for _, t in optim.tree_leaves_with_path(tree):
+            t.view(-1)[-1] = 0.0
+            t.view(-1)[0] = -0.0
+    grads = [draw(0.1) for _ in range(3)]
+    grads[1]["geometric-network"]["affine-00"]["W"].view(-1)[9] = math.nan
+    leaves = list(optim.tree_leaves_with_path(params))
+    elems = sum(p.numel() for _, p in leaves)
+
+    def run(fn):
+        p, s = clone(params), clone(state)
+        flags = [fn(p, clone(g), s, 1e-3, 2e-2, conf) for g in grads]
+        return p, s, [bool(f.item()) for f in flags]
+    kernels.reset_launches()
+    got = run(optim.apply_updates)
+    launches = dict(kernels.LAUNCHES)
+    want = run(optim.apply_updates_plain)
+    expect = dict(dict.fromkeys(kernels.SOURCES, 0),
+                  adam_update=ADAM_PER_STEP * len(grads))
+    if launches != expect:
+        raise AssertionError(f"adam: launches {launches}, want {expect}")
+    if got[2] != want[2] or got[2] != [True, False, True] \
+            or got[1]["count"].item() != 2 \
+            or want[1]["count"].item() != 2:
+        raise AssertionError(f"adam: flags {got[2]} and {want[2]}, counts "
+                             f"{got[1]['count']} and {want[1]['count']}")
+    for name, a, b in (("params", got[0], want[0]),
+                       ("mu", got[1]["mu"], want[1]["mu"]),
+                       ("nu", got[1]["nu"], want[1]["nu"])):
+        for (path, x), (_, y) in zip(optim.tree_leaves_with_path(a),
+                                     optim.tree_leaves_with_path(b)):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise AssertionError(f"adam: {name} {'/'.join(path)} is "
+                                     f"not PyTorch's bitwise (max abs "
+                                     f"difference "
+                                     f"{(x - y).abs().max().item():.3g})")
+    del got, want
+    torch.cuda.empty_cache()
+
+    mem_rate, _ = card_peaks(card_name)
+    bound_ms = 1e3 * 9 * 4 * elems / mem_rate
+    g = grads[0]
+    times = {}
+    for name in ("plain", "fused", "fused", "plain"):
+        fn = optim.apply_updates if name == "fused" \
+            else optim.apply_updates_plain
+
+        def step():
+            fn(params, g, state, 1e-3, 2e-2, conf)
+        times.setdefault(name, []).append(
+            (cuda_ms(torch, step), graph_ms(torch, step)))
+    ms = {k: [min(t[i] for t in v) for i in (0, 1)]
+          for k, v in times.items()}
+    log("adam", f"default tree ({len(leaves)} leaves, {elems} elements, "
+        f"G=512): kernels {ms['fused'][1]:.4f} ms replayed, "
+        f"{ms['fused'][0]:.4f} ms eager; PyTorch's passes "
+        f"{ms['plain'][1]:.4f} ms replayed, {ms['plain'][0]:.4f} ms eager; "
+        f"bound {bound_ms:.4f} ms (9 x 4 B an element at {mem_rate:.3g} "
+        f"B/s, {100 * bound_ms / ms['fused'][1]:.1f}% of it); 3 steps "
+        f"bitwise equal, the NaN step skipped, launches {launches} "
+        f"({card_name})")
+    return dict(name="adam_update", route="cuda",
+                source="ndjir_torch/csrc/adam_update.cu", replaces=None,
+                max_abs_err=0.0, bitwise_repeatable=True,
+                ms=ms["fused"][1], eager_ms=ms["fused"][0],
+                plain_ms=ms["plain"][1], plain_eager_ms=ms["plain"][0],
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                leaves=len(leaves), elements=elems)
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3458,11 +3590,16 @@ def main() -> int:
     lanczos_record = lanczos_phase(torch, kernels, grid, card_name)
     log("lanczos", f"done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    adam_record = adam_phase(torch, kernels, card_name)
+    log("adam", f"done in {time.perf_counter() - t0:.1f} s")
+
     # main-path launches: the training steps' and the render, validation
     # and extraction calls', then each command's of the command line, then
     # phase 11's training paths', phase 12's step from the imported
     # checkpoint and phase 13's captured steps
-    records = [scatter_record, fold_record, build_record, lanczos_record]
+    records = [scatter_record, fold_record, build_record, lanczos_record,
+               adam_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],
                           "render_validate_extract": rendered[path][r["name"]]}

@@ -29,7 +29,8 @@ BUILD_DIR = os.path.join(_CSRC, "build")
 SOURCES = {"scatter_add_rows": "scatter_add_rows.cu",
            "fold_octa_cotangent": "fold_octa_cotangent.cu",
            "build_octa_table": "build_octa_table.cu",
-           "lanczos_voxel_gather": "lanczos_voxel_gather.cu"}
+           "lanczos_voxel_gather": "lanczos_voxel_gather.cu",
+           "adam_update": "adam_update.cu"}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
