@@ -12,14 +12,16 @@ other grid encodings' presets through training and the command line
 (phase 10).  Phases, each printing its lines as it goes:
 
 1. device  -- the card, as ``nvidia-smi`` names it, with its power limit.
-2. build   -- every hand-written kernel of ``ndjir_torch/csrc``, compiled
-              with ``nvcc`` for sm_90a (one process per source, in
-              parallel), and the native mesh library with ``g++``.
+2. build   -- every native library of ``ndjir_torch/csrc`` through one
+              ``kernels.build()``: the hand-written CUDA kernels with
+              ``nvcc`` for sm_90a and the mesh library with ``g++``, one
+              process per source, in parallel.
 3. kernels -- each kernel's wrapper against its plain PyTorch version on the
-              card: at the shapes each path gives it and at edge cases;
-              error, run-to-run repeatability, times and the bound; and
-              the softplus first derivative's one-pass jiterator kernel
-              against its plain version, bitwise.
+              card at the shapes each path gives it: error, run-to-run
+              repeatability, times and the bound; and the softplus first
+              derivative's one-pass jiterator kernel against its plain
+              version, bitwise.  The edge cases are the ``cuda``-marked
+              tests' (``python3 -m pytest tests/ -q -m cuda``).
 4. parity  -- a small training loss and every parameter gradient on the card
               against the same computation on the CPU (the plain versions,
               which the CPU tests hold against the JAX reference), at f32
@@ -315,102 +317,6 @@ def _rand(torch, seed):
     return randn, randint
 
 
-def scatter_edge_cases(torch, scatter):
-    """Random ids; 700 updates to one row; no updates at all; updates in one
-    slab only; ids outside [0, num_rows) mixed in; num_rows not a multiple
-    of the slab; D in {1, 3, 4, 8, 32, 33}; the rows on either side of the
-    kernel's slab edges (256 rows at D=4, 128 at D=8, 64 at D=32) and of
-    the TPU kernel's (4096); transposed output; bf16 values; a
-    20,000-update row at D=32, transposed, bf16; one D=8 slab cut into 400
-    pieces; one row taking all 300,000 updates at D=8 and D=4; ids outside
-    the table at a 13- and a 19-bit key width; the bucket path at 20,001
-    and 476,672 rows.  Each is repeated bitwise."""
-    dev = torch.device("cuda")
-    randn, randint = _rand(torch, 0)
-    check_scatter(torch, scatter, "random", randint(100_000, 65_536),
-                  randn(65_536, 4), 100_000)
-    hot = torch.cat([torch.full((700,), 1234, device=dev),
-                     randint(9000, 500)])
-    check_scatter(torch, scatter, "700-to-one-row", hot, randn(1200, 4), 9000)
-    none = torch.zeros(0, dtype=torch.int64, device=dev)
-    for d, transposed in ((4, False), (32, True), (3, False)):
-        check_scatter(torch, scatter, f"no-updates-d{d}", none,
-                      randn(0, d), 10_007, transposed)
-    for d, transposed in ((4, False), (32, True)):
-        rows = scatter.slab_rows(d)
-        one = 5 * rows + randint(rows, 3000)
-        check_scatter(torch, scatter, f"one-busy-slab-d{d}", one,
-                      randn(3000, d), 40 * rows + 3, transposed)
-    outside = randint(70_000, 20_000) - 5000     # [-5000, 65000) into 60,001
-    outside[::7] = 2 ** 31 - 1
-    for d, transposed in ((4, False), (32, True), (1, False)):
-        check_scatter(torch, scatter, f"ids-outside-d{d}", outside,
-                      randn(20_000, d), 60_001, transposed)
-    for d in (1, 3, 33):
-        for transposed in (False, True):
-            check_scatter(torch, scatter, f"d{d}-transposed{int(transposed)}",
-                          randint(30_011, 8000), randn(8000, d), 30_011,
-                          transposed)
-    edges = torch.tensor([0, 31, 32, 63, 64, 127, 128, 255, 256, 511, 512,
-                          2047, 2048, 4095, 4096, 6143, 6144, 8191],
-                         device=dev).repeat_interleave(40)
-    for d in (4, 8, 32):
-        for transposed in (False, True):
-            check_scatter(torch, scatter,
-                          f"slab-edges-d{d}-transposed{int(transposed)}",
-                          edges, randn(edges.numel(), d), 8192, transposed)
-    for d in (4, 32):
-        check_scatter(torch, scatter, f"transposed-d{d}",
-                      randint(50_001, 20_000), randn(20_000, d), 50_001,
-                      transposed=True)
-    check_scatter(torch, scatter, "bf16", randint(30_000, 10_000),
-                  randn(10_000, 4, torch.bfloat16), 30_000)
-    hot = torch.cat([torch.full((20_000,), 4095, device=dev),
-                     randint(65_536, 5000)])
-    check_scatter(torch, scatter, "20000-to-one-row-d32-bf16-transposed",
-                  hot[torch.randperm(hot.numel(), device=dev)],
-                  randn(hot.numel(), 32, torch.bfloat16), 65_536,
-                  transposed=True)
-    # one D=8 slab cut into 400 pieces, each built by a warp of its own
-    rows, piece = scatter.slab_rows(8), scatter.piece_size(8)
-    split = 3 * rows + randint(rows, 400 * piece)
-    check_scatter(torch, scatter, "one-slab-400-pieces-d8", split,
-                  randn(split.numel(), 8), 10 * rows)
-    # a single row takes every update: one run through every piece, summed
-    # by the fix-up
-    for d in (8, 4):
-        one = torch.full((300_000,), 777, device=dev)
-        check_scatter(torch, scatter, f"one-row-all-updates-d{d}", one,
-                      randn(one.numel(), d), 6144)
-    # ids outside the table at a 13- and a 19-bit key width, whose low bits
-    # alias the rows the real ids take
-    for num_rows in (6144, 476_672):
-        bits = num_rows.bit_length()
-        near = torch.cat([num_rows - 1 - randint(100, 40_000),
-                          -1 - randint(2 ** 20, 5000),
-                          num_rows + randint(2 ** 20, 5000),
-                          (1 << bits) + num_rows - 1 - randint(100, 5000)])
-        near = near[torch.randperm(near.numel(), device=dev)]
-        for d in (4, 8):
-            check_scatter(torch, scatter,
-                          f"ids-outside-{bits}-bit-keys-d{d}", near,
-                          randn(near.numel(), d), num_rows)
-    # the bucket path (f32 at D=4, 8 or more updates a row): buckets of 128
-    # and 2,048 rows, a row taking more updates than a piece, ids outside
-    # whose low bits alias real rows, a table not a whole number of buckets
-    for num_rows, n in ((20_001, 200_000), (476_672, 4_000_000)):
-        ids = torch.cat([randint(num_rows, n),
-                         torch.full((40_000,), num_rows // 3, device=dev),
-                         -1 - randint(2 ** 20, 5000),
-                         num_rows + randint(2 ** 20, 5000)])
-        ids = ids[torch.randperm(ids.numel(), device=dev)]
-        vals = randn(ids.numel(), 4)
-        if not scatter.bucket_bits(ids.numel(), vals, num_rows):
-            raise AssertionError(f"{num_rows} rows: no bucket path")
-        check_scatter(torch, scatter, f"bucket-path-{num_rows}-rows", ids,
-                      vals, num_rows)
-
-
 def profile_once(torch, label, fn):
     """One call of ``fn`` (after a warm-up call) under ``torch.profiler``:
     the device time of every kernel it launched, by kernel name, logged
@@ -574,24 +480,6 @@ def check_fold(torch, fold, label, cot, gshape):
     return err
 
 
-def fold_edge_cases(torch, fold):
-    """Non-cubic, tiny and single-slab grids, the far corner that sums 27
-    inputs, and the TPU kernel's test shapes."""
-    dev = torch.device("cuda")
-    randn, _ = _rand(torch, 3)
-    for gshape in [(5, 6, 7, 3), (2, 2, 2, 4), (1, 3, 2, 2), (3, 1, 1, 1),
-                   (4, 2, 128, 4), (8, 2, 128, 2)]:
-        M = gshape[0] * gshape[1] * gshape[2]
-        check_fold(torch, fold, "random", randn(8 * gshape[3], M), gshape)
-    ones = fold.fold_octa_cotangent(torch.ones(32, 4 * 3 * 5, device=dev),
-                                    (4, 3, 5, 4))
-    if ones[-1, -1, -1].tolist() != [27.0] * 4 \
-            or ones[1, 1, 1].tolist() != [8.0] * 4:
-        raise AssertionError("fold of ones: the far corner must sum 27 "
-                             "inputs and an interior cell 8")
-    log("kernels", "fold_octa_cotangent far corner: 27 inputs summed")
-
-
 def fold_ops(gshape) -> int:
     """Adds the fold needs on this grid: per output, its inputs less one;
     along an axis of length L a cell takes 1 input at 0 (2 if L = 1), 2
@@ -659,21 +547,6 @@ def check_build(torch, octa_build, label, base):
         raise AssertionError(f"{label}: the octa build differs from its "
                              "plain version, or two runs differ")
     return got
-
-
-def build_edge_cases(torch, octa_build):
-    """Non-cubic grids, axes of length 1 and 2, D in {2, 3, 4}, bf16 and
-    f32: cells of 4, 6, 8, 12 and 16 bytes, every vector width the kernel
-    picks."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    for dtype in (torch.bfloat16, torch.float32):
-        for gshape in [(5, 3, 7, 4), (5, 3, 7, 2), (1, 3, 2, 4),
-                       (2, 1, 1, 2), (1, 1, 1, 4), (2, 2, 2, 2),
-                       (3, 1, 2, 4), (1, 2, 1, 2), (4, 5, 6, 3)]:
-            base = torch.randn(gshape, generator=gen, device=dev).to(dtype)
-            check_build(torch, octa_build, "edge", base)
 
 
 def softplus_grad_check(torch, card_name):
@@ -1276,7 +1149,7 @@ def render_phase(torch, np, kernels, trainer, path, card_name, full_extract):
 
     conf, ds = trainer.conf, trainer.ds
     builds = BUILDS_PER_CALL[path]
-    none = dict.fromkeys(kernels.SOURCES, 0)
+    none = dict.fromkeys(kernels.LAUNCHES, 0)
     per_call = dict(none, build_octa_table=builds)
     idx = conf.valid.index % ds.size
     dn = 2 ** conf.valid.n_down_samples
@@ -1493,7 +1366,7 @@ def run_command(torch, kernels, times, path, command, argv, want,
     torch.cuda.synchronize()
     times[f"{path} {command}"] = 1e3 * (time.perf_counter() - t0)
     got = dict(kernels.LAUNCHES)
-    want = dict(dict.fromkeys(kernels.SOURCES, 0), **want)
+    want = dict(dict.fromkeys(kernels.LAUNCHES, 0), **want)
     if got != want:
         raise AssertionError(f"{path} {command}: launches {got}, want "
                              f"{want}")
@@ -1791,7 +1664,7 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
 
     launches, epoch_ms, peak = train_phase(
         torch, kernels, trainer, card_name,
-        dict(dict.fromkeys(kernels.SOURCES, 0), scatter_add_rows=len(want),
+        dict(dict.fromkeys(kernels.LAUNCHES, 0), scatter_add_rows=len(want),
              lanczos_voxel_gather=GATHERS_PER_STEP[preset],
              adam_update=ADAM_PER_STEP))
     ms_step = epoch_ms[-1] / trainer.ds.iters_per_epoch
@@ -1997,7 +1870,7 @@ def coarse_grid_phase(torch, kernels, card_name, net_ms_step):
     snap = sampler.make_proposal_grid(trainer.params, conf)
     torch.cuda.synchronize()
     snap_ms = 1e3 * (time.perf_counter() - t0)
-    expect_launches(kernels, "snapshot", dict.fromkeys(kernels.SOURCES, 0))
+    expect_launches(kernels, "snapshot", dict.fromkeys(kernels.LAUNCHES, 0))
     if snap.shape != (Gc,) * 3 + (1,) or snap.requires_grad \
             or not bool(torch.isfinite(snap).all()):
         raise AssertionError(f"snapshot {tuple(snap.shape)}")
@@ -2246,7 +2119,7 @@ def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
     reserved = torch.cuda.max_memory_reserved()
     iters = min(ds.iters_per_epoch for ds in mt.datasets)
     steps = epochs * iters
-    want = dict.fromkeys(kernels.SOURCES, 0)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
     want["scatter_add_rows"] = 2 * S * steps
     want["adam_update"] = ADAM_PER_STEP * S * steps
     if launches != want:
@@ -3233,7 +3106,7 @@ def lanczos_phase(torch, kernels, grid, card_name):
         torch.cuda.synchronize()
         return dict(kernels.LAUNCHES)
 
-    none = dict.fromkeys(kernels.SOURCES, 0)
+    none = dict.fromkeys(kernels.LAUNCHES, 0)
     trainer = make_trainer(torch, tag="monitor_lanczos", config="custom")
     queries, real = [], grid.lanczos_voxel_gather
 
@@ -3377,7 +3250,7 @@ def adam_phase(torch, kernels, card_name):
     got = run(optim.apply_updates)
     launches = dict(kernels.LAUNCHES)
     want = run(optim.apply_updates_plain)
-    expect = dict(dict.fromkeys(kernels.SOURCES, 0),
+    expect = dict(dict.fromkeys(kernels.LAUNCHES, 0),
                   adam_update=ADAM_PER_STEP * len(grads))
     if launches != expect:
         raise AssertionError(f"adam: launches {launches}, want {expect}")
@@ -3462,7 +3335,6 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from ndjir_torch import kernels
-    from ndjir_torch.extract import native
     from ndjir_torch.ops import fold, grid, octa_build, scatter
 
     t0 = time.perf_counter()
@@ -3471,19 +3343,12 @@ def main() -> int:
         lines = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln]
         log("build", f"{name}: {' | '.join(lines)}")
-    log("build", f"{len(kernels.SOURCES)} kernel(s) ready in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    native.build()
-    log("build", f"native mesh library ready in "
+    log("build", f"{len(kernels.LIBRARIES)} native libraries ready in "
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    scatter_edge_cases(torch, scatter)
-    fold_edge_cases(torch, fold)
-    build_edge_cases(torch, octa_build)
     softplus_grad_check(torch, card_name)
-    log("kernels", f"edge cases done in {time.perf_counter() - t0:.1f} s")
+    log("kernels", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for label in PARITY:

@@ -26,22 +26,9 @@ from ndjir_torch import kernels
 _KERNEL = "adam_update"
 
 
-def _lib():
-    lib = kernels.load(_KERNEL)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.adam_update_max_leaves.argtypes = []
-    lib.adam_update_max_leaves.restype = i
-    lib.adam_finite_reduce.argtypes = [i, p, p, p, f, i, p, p]
-    lib.adam_finite_reduce.restype = i
-    lib.adam_update_elementwise.argtypes = [i, p, p, p, p, p, p, f, i, f, f,
-                                            f, f, f, p, p, p, p]
-    lib.adam_update_elementwise.restype = i
-    return lib
-
-
 def max_leaves() -> int:
     """Leaves one launch takes."""
-    return _lib().adam_update_max_leaves()
+    return kernels.load(_KERNEL).adam_update_max_leaves()
 
 
 def _check(tensors: Sequence[torch.Tensor], numel: int, device) -> None:
@@ -80,19 +67,14 @@ def finite_flag(gs: Sequence[torch.Tensor], ps: Sequence[torch.Tensor],
     for g, p in zip(gs, ps):
         _check((g, p), g.numel(), device)
     flag = torch.ones((), dtype=torch.bool, device=device)
-    fn = _lib().adam_finite_reduce
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for part in _chunks(len(gs)):
-            g, p = gs[part], ps[part]
-            n = (ctypes.c_longlong * len(g))(*(t.numel() for t in g))
-            err = fn(len(g), _addresses(g), _addresses(p), n, wd, int(wd > 0),
-                     flag.data_ptr(), stream)
-            if err != 0:
-                raise RuntimeError(f"adam_finite_reduce launch failed: "
-                                   f"cudaError {err}")
-            if sum(n) > 0:
-                kernels.LAUNCHES[_KERNEL] += 1
+    for part in _chunks(len(gs)):
+        g, p = gs[part], ps[part]
+        n = (ctypes.c_longlong * len(g))(*(t.numel() for t in g))
+        kernels.launch(_KERNEL, "adam_finite_reduce", device, len(g),
+                       _addresses(g), _addresses(p), n, wd, int(wd > 0),
+                       flag.data_ptr())
+        if sum(n) > 0:
+            kernels.count(_KERNEL)
     return flag
 
 
@@ -119,20 +101,15 @@ def update(gs: Sequence[torch.Tensor], ps: Sequence[torch.Tensor],
             or finite.device != device:
         raise TypeError(f"a 0-dim bool flag on {device} expected, got "
                         f"{finite.dtype} on {finite.device}")
-    fn = _lib().adam_update_elementwise
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for part in _chunks(len(gs)):
-            g = gs[part]
-            n = (ctypes.c_longlong * len(g))(*(t.numel() for t in g))
-            f = (ctypes.c_ubyte * len(g))(*(int(x) for x in feat[part]))
-            err = fn(len(g), _addresses(g), _addresses(ps[part]),
-                     _addresses(ms[part]), _addresses(vs[part]), n, f,
-                     wd, int(wd > 0), b1, b2, 1 - b1, 1 - b2, eps,
-                     finite.data_ptr(), lr_bias_feat.data_ptr(),
-                     lr_bias_weight.data_ptr(), stream)
-            if err != 0:
-                raise RuntimeError(f"adam_update_elementwise launch failed: "
-                                   f"cudaError {err}")
-            if sum(n) > 0:
-                kernels.LAUNCHES[_KERNEL] += 1
+    for part in _chunks(len(gs)):
+        g = gs[part]
+        n = (ctypes.c_longlong * len(g))(*(t.numel() for t in g))
+        f = (ctypes.c_ubyte * len(g))(*(int(x) for x in feat[part]))
+        kernels.launch(_KERNEL, "adam_update_elementwise", device, len(g),
+                       _addresses(g), _addresses(ps[part]),
+                       _addresses(ms[part]), _addresses(vs[part]), n, f, wd,
+                       int(wd > 0), b1, b2, 1 - b1, 1 - b2, eps,
+                       finite.data_ptr(), lr_bias_feat.data_ptr(),
+                       lr_bias_weight.data_ptr())
+        if sum(n) > 0:
+            kernels.count(_KERNEL)

@@ -19,8 +19,6 @@ a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ndjir_torch import kernels
@@ -79,18 +77,10 @@ def _launch(cot_t: torch.Tensor, gshape,
         raise TypeError(f"a contiguous float32 cotangent expected, got "
                         f"{cot_t.dtype}")
     Gx, Gy, Gz, D = (int(n) for n in gshape)
-    lib = kernels.load(_KERNEL)
-    fn = lib.fold_octa_cotangent
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((Gx, Gy, Gz, D), dtype=out_dtype, device=cot_t.device)
-    stream = torch.cuda.current_stream(cot_t.device).cuda_stream
-    err = fn(cot_t.data_ptr(), out.data_ptr(), Gx, Gy, Gz, D,
-             int(out_dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed: cudaError {err}")
+    kernels.launch(_KERNEL, _KERNEL, cot_t.device, cot_t.data_ptr(),
+                   out.data_ptr(), Gx, Gy, Gz, D,
+                   int(out_dtype == torch.bfloat16))
     return out
 
 
@@ -105,6 +95,6 @@ def fold_octa_cotangent(cot_t: torch.Tensor, gshape,
         return _fold_octa_cotangent_plain(cot_t.float(), gshape, out_dtype)
     if cot_t.device.type == "cuda":
         out = _launch(cot_t, gshape, out_dtype)
-        kernels.LAUNCHES[_KERNEL] += 1
+        kernels.count(_KERNEL)
         return out
     raise ValueError(f"no fold for device {cot_t.device}")

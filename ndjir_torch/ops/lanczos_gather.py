@@ -35,15 +35,6 @@ def sums_in_warps(outputs: int) -> bool:
     return outputs % 4 == 0 and outputs >= 128
 
 
-def _lib():
-    lib = kernels.load(_KERNEL)
-    fn = lib.lanczos_voxel_gather
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p, p, p]
-    fn.restype = i
-    return fn
-
-
 def lanczos_voxel_gather(x: torch.Tensor, table: torch.Tensor,
                          vmin: Sequence[float], vmax: Sequence[float]
                          ) -> torch.Tensor:
@@ -72,11 +63,7 @@ def lanczos_voxel_gather(x: torch.Tensor, table: torch.Tensor,
     out = torch.empty((n, D), dtype=torch.float32, device=x.device)
     lo = (ctypes.c_float * 3)(*vmin)
     hi = (ctypes.c_float * 3)(*vmax)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib()(pts.data_ptr(), table.data_ptr(), out.data_ptr(), n,
-                     Gx, Gy, Gz, D, lo, hi, stream)
-    if err != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed: cudaError {err}")
-    kernels.LAUNCHES[_KERNEL] += 1
+    kernels.launch(_KERNEL, _KERNEL, x.device, pts.data_ptr(),
+                   table.data_ptr(), out.data_ptr(), n, Gx, Gy, Gz, D, lo, hi)
+    kernels.count(_KERNEL)
     return out.reshape(*x.shape[:-1], D)

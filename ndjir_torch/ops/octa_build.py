@@ -19,8 +19,6 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ndjir_torch import kernels
@@ -52,19 +50,10 @@ def _launch(base: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"a contiguous (Gx, Gy, Gz, D) table expected, got "
                          f"{tuple(base.shape)}")
     Gx, Gy, Gz, D = (int(n) for n in base.shape)
-    lib = kernels.load(_KERNEL)
-    fn = lib.build_octa_table
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((Gx * Gy * Gz, 8 * D), dtype=base.dtype,
                       device=base.device)
-    stream = torch.cuda.current_stream(base.device).cuda_stream
-    err = fn(base.data_ptr(), out.data_ptr(), Gx, Gy, Gz, D,
-             base.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed: cudaError {err}")
+    kernels.launch(_KERNEL, _KERNEL, base.device, base.data_ptr(),
+                   out.data_ptr(), Gx, Gy, Gz, D, base.element_size())
     return out
 
 
@@ -82,6 +71,6 @@ def build_octa_table(base: torch.Tensor) -> torch.Tensor:
         return _build_octa_table_plain(base)
     if base.device.type == "cuda":
         out = _launch(base)
-        kernels.LAUNCHES[_KERNEL] += 1
+        kernels.count(_KERNEL)
         return out
     raise ValueError(f"no octa build for device {base.device}")

@@ -120,28 +120,6 @@ def bucket_bits(n: int, vals: torch.Tensor, num_rows: int) -> int:
     return bits
 
 
-def _lib():
-    lib = kernels.load(_KERNEL)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.scatter_sort_bytes.argtypes = [ll, ll, i,
-                                       ctypes.POINTER(ctypes.c_size_t)]
-    lib.scatter_sort.argtypes = [p, i, ll, ll, i, p, p, p, p, ctypes.c_size_t,
-                                 p]
-    lib.scatter_plan.argtypes = [p, ll, ll, i, i, i, p, p]
-    lib.scatter_add_rows.argtypes = [p, p, p, i, p, p, p, ll, i, ll, i, i, i,
-                                     p]
-    lib.scatter_add_rows_buckets.argtypes = [p, p, p, p, p, ll, ll, i, i, p]
-    for fn in (lib.scatter_sort_bytes, lib.scatter_sort, lib.scatter_plan,
-               lib.scatter_add_rows, lib.scatter_add_rows_buckets):
-        fn.restype = i
-    return lib
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{_KERNEL} {what} failed: cudaError {err}")
-
-
 def sort_keys_plain(ids: torch.Tensor, num_rows: int,
                     bits: int = 0) -> torch.Tensor:
     """The keys the sort orders, as int32: each id inside [0, num_rows),
@@ -164,10 +142,9 @@ def _sort_launch(ids: torch.Tensor, num_rows: int, bits: int = 0,
     carrying ``vals``' 16-byte rows."""
     ids = ids.contiguous()
     n = ids.numel()
-    lib = _lib()
     size = ctypes.c_size_t(0)
-    _raise_on(lib.scatter_sort_bytes(n, num_rows, bits, ctypes.byref(size)),
-              "sort sizing")
+    kernels.call(_KERNEL, "scatter_sort_bytes", n, num_rows, bits,
+                 ctypes.byref(size))
     temp_bytes = size.value
     keys = torch.empty(2, n, dtype=torch.int32, device=ids.device)
     if bits:
@@ -180,12 +157,10 @@ def _sort_launch(ids: torch.Tensor, num_rows: int, bits: int = 0,
         values_out = values_in[1]
     temp = torch.empty(max(1, temp_bytes), dtype=torch.uint8,
                        device=ids.device)
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    with torch.cuda.device(ids.device):
-        _raise_on(lib.scatter_sort(
-            ids.data_ptr(), int(ids.dtype == torch.int64), n, num_rows, bits,
-            keys.data_ptr(), values_in.data_ptr(), values_out.data_ptr(),
-            temp.data_ptr(), temp_bytes, stream), "sort")
+    kernels.launch(_KERNEL, "scatter_sort", ids.device, ids.data_ptr(),
+                   int(ids.dtype == torch.int64), n, num_rows, bits,
+                   keys.data_ptr(), values_in.data_ptr(),
+                   values_out.data_ptr(), temp.data_ptr(), temp_bytes)
     return keys[1], values_out
 
 
@@ -267,11 +242,9 @@ def _plan_launch(ids_sorted: torch.Tensor, num_rows: int, rows: int,
     scratch = torch.empty(_pieces_offset(n_slabs)
                           + 2 * _max_pieces(n, piece, n_slabs, cut),
                           dtype=torch.int32, device=ids_sorted.device)
-    stream = torch.cuda.current_stream(ids_sorted.device).cuda_stream
-    with torch.cuda.device(ids_sorted.device):
-        _raise_on(_lib().scatter_plan(ids_sorted.data_ptr(), n, num_rows,
-                                      rows, piece, cut, scratch.data_ptr(),
-                                      stream), "pre-pass")
+    kernels.launch(_KERNEL, "scatter_plan", ids_sorted.device,
+                   ids_sorted.data_ptr(), n, num_rows, rows, piece, cut,
+                   scratch.data_ptr())
     return scratch
 
 
@@ -336,13 +309,11 @@ def _launch(ids_sorted: torch.Tensor, perm: torch.Tensor, vals: torch.Tensor,
                            device=vals.device)
     shape = (d, num_rows) if transposed else (num_rows, d)
     out = torch.empty(shape, dtype=torch.float32, device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    with torch.cuda.device(vals.device):
-        _raise_on(_lib().scatter_add_rows(
-            ids_sorted.data_ptr(), perm.data_ptr(), vals.data_ptr(),
-            int(vals.dtype == torch.bfloat16), scratch.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), n, d, num_rows, rows,
-            int(transposed), piece, stream), "launch")
+    kernels.launch(_KERNEL, "scatter_add_rows", vals.device,
+                   ids_sorted.data_ptr(), perm.data_ptr(), vals.data_ptr(),
+                   int(vals.dtype == torch.bfloat16), scratch.data_ptr(),
+                   partials.data_ptr(), out.data_ptr(), n, d, num_rows, rows,
+                   int(transposed), piece)
     return out
 
 
@@ -366,12 +337,10 @@ def _launch_buckets(keys: torch.Tensor, vals: torch.Tensor, num_rows: int,
     partials = torch.empty(lines * rows * 4, dtype=torch.float32,
                            device=vals.device)
     out = torch.empty(num_rows, 4, dtype=torch.float32, device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    with torch.cuda.device(vals.device):
-        _raise_on(_lib().scatter_add_rows_buckets(
-            keys.data_ptr(), vals.data_ptr(), scratch.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), n, num_rows, bits,
-            _BUCKET_PIECE, stream), "bucket launch")
+    kernels.launch(_KERNEL, "scatter_add_rows_buckets", vals.device,
+                   keys.data_ptr(), vals.data_ptr(), scratch.data_ptr(),
+                   partials.data_ptr(), out.data_ptr(), n, num_rows, bits,
+                   _BUCKET_PIECE)
     return out
 
 
@@ -389,7 +358,7 @@ def _scatter_add_rows_cuda(ids: torch.Tensor, vals: torch.Tensor,
     else:
         out = _launch(*sort_updates(ids, num_rows), vals.contiguous(),
                       num_rows, transposed)
-    kernels.LAUNCHES[_KERNEL] += 1
+    kernels.count(_KERNEL)
     return out
 
 

@@ -215,7 +215,7 @@ class CapturedStep:
                 self.graph.replay()
                 self.replays += 1
                 for k, n in self.tally.items():
-                    kernels.LAUNCHES[k] += n
+                    kernels.count(k, n)
                 vec = self.mon_vec
             if mons is None:
                 mons = torch.empty((K, *vec.shape), dtype=vec.dtype,

@@ -284,7 +284,7 @@ def test_every_preset_is_the_jax_packages(name):
 
 
 @pytest.mark.parametrize("name", ["custom", "triplaneline", "voxel_hash"])
-def test_presets_of_encodings_not_ported_are_refused(name):
+def test_presets_of_the_other_encodings_are_accepted(name):
     """The presets of the other encodings (refused until they were ported)
     are accepted, and their grid's leaves at the published widths have the
     JAX package's names and shapes (built on the meta device)."""

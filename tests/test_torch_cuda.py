@@ -5,7 +5,8 @@ GPU (the kernels have no CPU mode; on a CPU tensor a wrapper runs the plain
 version, which the other ``test_torch_*`` files hold against the JAX
 reference).  The file imports no JAX, so it also runs on a machine that has
 only PyTorch: ``python3 -m pytest tests/test_torch_cuda.py -q``.
-``chip_smoke.py`` runs the same comparison at the training step's shape.
+``chip_smoke.py`` runs the same comparison at the training step's shape;
+the edge cases are held here alone.
 """
 
 import numpy as np
@@ -84,34 +85,50 @@ def _edge_inputs(case, rng):
     """(ids, num_rows, D, transposed, values' dtype) of one edge case."""
     if case == "no_updates":
         return np.zeros(0, np.int64), 10_007, 32, True, torch.float32
+    if case.startswith("no_updates_d"):
+        return np.zeros(0, np.int64), 10_007, int(case[12:]), False, \
+            torch.float32
     if case == "one_busy_slab":             # every slab empty but one
         rows = scatter.slab_rows(4)
         return 5 * rows + rng.randint(0, rows, 3000), 40 * rows + 3, 4, \
             False, torch.float32
-    if case == "ids_outside":               # dropped, as XLA drops them
+    if case == "one_busy_slab_d32":
+        rows = scatter.slab_rows(32)
+        return 5 * rows + rng.randint(0, rows, 3000), 40 * rows + 3, 32, \
+            True, torch.float32
+    if case.startswith("ids_outside"):      # dropped, as XLA drops them
         ids = rng.randint(-5000, 65_000, 20_000)
         ids[::7] = 2 ** 31 - 1
-        return ids, 60_001, 32, True, torch.float32
-    if case.startswith("ragged_d"):         # rows not a multiple of a slab
-        return rng.randint(0, 30_011, 8000), 30_011, int(case[8:]), False, \
-            torch.float32
+        if case == "ids_outside":
+            return ids, 60_001, 32, True, torch.float32
+        return ids, 60_001, int(case[13:]), False, torch.float32
+    if case.startswith("ragged_"):          # rows not a multiple of a slab
+        transposed = case.startswith("ragged_t_d")
+        return rng.randint(0, 30_011, 8000), 30_011, \
+            int(case.split("_d")[1]), transposed, torch.float32
+    if case == "bf16_d4":                   # bf16 values and output
+        return rng.randint(0, 30_000, 10_000), 30_000, 4, False, \
+            torch.bfloat16
     if case == "hot_row_d32_bf16":
         ids = np.concatenate([np.full(20_000, 4095),
                               rng.randint(0, 65_536, 5000)])
         return rng.permutation(ids), 65_536, 32, True, torch.bfloat16
     if case == "split_slab_d8":             # one slab over many pieces
         rows = scatter.slab_rows(8)
-        return 3 * rows + rng.randint(0, rows, 200 * scatter.piece_size(8)), \
+        return 3 * rows + rng.randint(0, rows, 400 * scatter.piece_size(8)), \
             10 * rows, 8, False, torch.float32
     if case.startswith("one_row_d"):        # every update to one row
-        return np.full(100_000, 777), 6144, int(case[9:]), False, \
+        return np.full(300_000, 777), 6144, int(case[9:]), False, \
             torch.float32
     if case.startswith("outside_bits"):     # a 13- or 19-bit key range
-        narrow = case.endswith("13")
+        narrow = case.startswith("outside_bits13")
         num_rows = 6144 if narrow else 476_672
         ids = np.concatenate([rng.randint(num_rows - 100, num_rows, 8000),
                               rng.randint(-2000, 0, 2000),
                               num_rows + rng.randint(0, 1 << 20, 2000)])
+        if "_d" in case:                    # f32, untransposed, any D
+            return rng.permutation(ids), num_rows, int(case[16:]), False, \
+                torch.float32
         return rng.permutation(ids), num_rows, 8 if narrow else 4, narrow, \
             torch.bfloat16 if narrow else torch.float32
     raise ValueError(case)
@@ -122,7 +139,13 @@ def _edge_inputs(case, rng):
                                   "ids_outside", "ragged_d1", "ragged_d3",
                                   "ragged_d33", "hot_row_d32_bf16",
                                   "split_slab_d8", "one_row_d8", "one_row_d4",
-                                  "outside_bits13", "outside_bits19"])
+                                  "outside_bits13", "outside_bits19",
+                                  "no_updates_d4", "no_updates_d3",
+                                  "one_busy_slab_d32", "ids_outside_d4",
+                                  "ids_outside_d1", "ragged_t_d1",
+                                  "ragged_t_d3", "ragged_t_d33", "bf16_d4",
+                                  "outside_bits13_d4", "outside_bits13_d8",
+                                  "outside_bits19_d8"])
 def test_scatter_kernel_edge_cases(cuda, case):
     ids_np, num_rows, d, transposed, dtype = _edge_inputs(
         case, np.random.RandomState(21))
@@ -137,11 +160,41 @@ def test_scatter_kernel_edge_cases(cuda, case):
     want = _scatter_add_rows_plain(ids[keep], vals[keep], num_rows,
                                    acc_dtype=torch.float64)
     want = want.t() if transposed else want
-    assert got.shape == want.shape and got.dtype == torch.float32
-    tol = 1e-5 * max(1.0, want.abs().max().item() if want.numel() else 0.0)
+    # the transposed form sums into f32; the other returns the values' dtype
+    out_dtype = torch.float32 if transposed else dtype
+    assert got.shape == want.shape and got.dtype == out_dtype
+    # f32 sums against exact ones; a bf16 output rounds them once (2^-7);
+    # no floor: all-zero sums must come out exactly zero
+    rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+    tol = rel * (want.abs().max().item() if want.numel() else 0.0)
     assert (got.double() - want).abs().max().item() <= tol
     if case == "no_updates":
         assert not got.any()
+    _sort_and_plan_are_plain(ids, vals, num_rows, transposed)
+
+
+def _sort_and_plan_are_plain(ids, vals, num_rows, transposed):
+    """The sort, the slab pre-pass and the piece plan of one call, each
+    against its plain version, exactly (the bucket path's where it takes
+    the call)."""
+    d = vals.shape[1]
+    bits = 0 if transposed else scatter.bucket_bits(ids.numel(), vals,
+                                                    num_rows)
+    if bits:
+        keys, moved = scatter.sort_by_bucket(ids, vals, num_rows, bits)
+        plain = scatter._sort_by_bucket_plain(ids, vals, num_rows, bits)
+        rows, piece, cut = 1 << bits, scatter._BUCKET_PIECE, 0
+    else:
+        keys, moved = scatter.sort_updates(ids, num_rows)
+        plain = scatter._sort_updates_plain(ids, num_rows)
+        rows, piece, cut = scatter.slab_rows(d), scatter.piece_size(d), None
+    assert torch.equal(keys, plain[0]) and torch.equal(moved, plain[1])
+    starts = scatter.slab_starts(keys, num_rows, rows, bits)
+    plain_starts = scatter._slab_starts_plain(keys, num_rows, rows, bits)
+    assert torch.equal(starts, plain_starts)
+    assert torch.equal(scatter.piece_plan(keys, num_rows, rows, piece, cut,
+                                          bits),
+                       scatter._piece_plan_plain(plain_starts, piece, cut))
 
 
 @pytest.mark.cuda
@@ -262,7 +315,8 @@ def test_scatter_refuses_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gshape", [(5, 6, 7, 3), (2, 2, 2, 4), (1, 3, 2, 2),
-                                    (4, 2, 128, 4), (33, 17, 65, 4)])
+                                    (4, 2, 128, 4), (33, 17, 65, 4),
+                                    (3, 1, 1, 1), (8, 2, 128, 2)])
 def test_fold_kernel_matches_plain_version(cuda, gshape):
     rng = np.random.RandomState(12)
     M = int(np.prod(gshape[:3]))
@@ -338,7 +392,8 @@ def test_bf16_affine_on_the_card_sums_in_f32(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gshape", [(5, 3, 7, 4), (5, 3, 7, 2), (1, 3, 2, 4),
                                     (2, 1, 1, 2), (1, 1, 1, 4), (2, 2, 2, 2),
-                                    (4, 5, 6, 3), (16, 16, 16, 4)], ids=str)
+                                    (4, 5, 6, 3), (16, 16, 16, 4),
+                                    (3, 1, 2, 4), (1, 2, 1, 2)], ids=str)
 def test_octa_build_kernel_is_the_plain_version_bitwise(cuda, gshape, dtype):
     """Every vector width the kernel picks (cells of 4, 6, 8, 12 and 16
     bytes), non-cubic grids and axes of length 1 and 2."""

@@ -423,7 +423,10 @@ def test_cpu_leaves_take_the_plain_path(monkeypatch, dtype):
 
 
 def test_kernel_is_registered_and_refuses_cpu_tensors():
-    assert kernels.SOURCES["adam_update"] == "adam_update.cu"
+    lib = kernels.LIBRARIES["adam_update"]
+    assert (lib.source, lib.compiler) == ("adam_update.cu", "nvcc")
+    assert {"adam_finite_reduce", "adam_update_elementwise"} \
+        <= set(lib.functions)
     assert "adam_update" in kernels.LAUNCHES
     g = torch.zeros(4)
     with pytest.raises(ValueError):

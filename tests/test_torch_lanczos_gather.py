@@ -287,8 +287,9 @@ def test_kernel_takes_the_output_counts_summed_in_warps(outputs, takes):
 
 
 def test_kernel_is_registered_and_refuses_cpu_tensors():
-    assert kernels.SOURCES["lanczos_voxel_gather"] == \
-        "lanczos_voxel_gather.cu"
+    lib = kernels.LIBRARIES["lanczos_voxel_gather"]
+    assert (lib.source, lib.compiler) == ("lanczos_voxel_gather.cu", "nvcc")
+    assert list(lib.functions) == ["lanczos_voxel_gather"]
     assert "lanczos_voxel_gather" in kernels.LAUNCHES
     with pytest.raises(ValueError):
         lanczos_gather.lanczos_voxel_gather(torch.zeros(4, 3),
