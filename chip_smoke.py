@@ -19,8 +19,9 @@ other grid encodings' presets through training and the command line
 3. kernels -- each kernel's wrapper against its plain PyTorch version on the
               card at the shapes each path gives it: error, run-to-run
               repeatability, times and the bound; and the softplus first
-              derivative's one-pass jiterator kernel against its plain
-              version, bitwise.  The edge cases are the ``cuda``-marked
+              derivative's one-pass jiterator kernel and its second
+              derivative's one-pass kernel against their plain versions,
+              bitwise.  The edge cases are the ``cuda``-marked
               tests' (``python3 -m pytest tests/ -q -m cuda``).
 4. parity  -- a small training loss and every parameter gradient on the card
               against the same computation on the CPU (the plain versions,
@@ -185,13 +186,18 @@ OCTA_ROWS = OCTA_G ** 3
 # (the dual-Adam kernel pair: 2 a step, the f32 leaves; the bf16 table of
 # g256_bf16 takes PyTorch's passes)
 ADAM_PER_STEP = 2
+# (the softplus second derivative: one launch a hidden layer of the 8-layer
+# geometric MLP at the rendered points, f32 and bf16 alike)
+SOFTPLUS_PER_STEP = 7
 STEP_LAUNCHES = {
     "default": {"scatter_add_rows": 2, "fold_octa_cotangent": 0,
                 "build_octa_table": 0, "lanczos_voxel_gather": 0,
-                "adam_update": ADAM_PER_STEP},
+                "adam_update": ADAM_PER_STEP,
+                "softplus_grad_grad": SOFTPLUS_PER_STEP},
     "g256_bf16": {"scatter_add_rows": 1, "fold_octa_cotangent": 1,
                   "build_octa_table": 0, "lanczos_voxel_gather": 0,
-                  "adam_update": ADAM_PER_STEP}}
+                  "adam_update": ADAM_PER_STEP,
+                  "softplus_grad_grad": SOFTPLUS_PER_STEP}}
 # octa table builds per render_image or extract call, per path
 BUILDS_PER_CALL = {"default": 0, "g256_bf16": 1}
 
@@ -586,6 +592,71 @@ def softplus_grad_check(torch, card_name):
             f"kernel bitwise its plain version; {ms:.4f} ms (plain, two "
             f"passes {plain:.4f}; the fused op's backward alone, 1/2 at 0, "
             f"{fused:.4f}) on {card_name}")
+
+
+def softplus_grad_grad_check(torch, card_name):
+    """The softplus second derivative's one-pass kernel (it replaces no
+    TPU kernel) against its plain form (the first derivative's jiterator
+    kernel and eight PyTorch ops) at the default step's hidden layer shape
+    (B x R x 128 samples x 256 units), and at the layer before the skip
+    concatenation (213 of 256 columns, g a slice of 256-wide rows), f32
+    and bf16, beta 100, with exact zeros, values across the threshold, NaN
+    and infinities: bitwise, and both timed against the bytes bound (gg, g
+    and x read, dg and dx written)."""
+    from ndjir_torch import kernels
+    from ndjir_torch.ops import activations
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    mem_rate, _ = card_peaks(card_name)
+    rows = MAIN_N // 8
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for cols in (256, 213):
+            x = (torch.randn((rows, cols), generator=gen, device=dev)
+                 * 0.1).to(dtype)
+            flat = x.view(-1)
+            flat[:4096] = 0.0
+            flat[4096:4160] = torch.linspace(0.195, 0.205, 64, device=dev)
+            flat[4160:4164] = torch.tensor([float("nan"), float("inf"),
+                                            -float("inf"), -0.0], device=dev)
+            gg = torch.randn((rows, cols), generator=gen,
+                             device=dev).to(dtype)
+            g = torch.randn((rows, 256), generator=gen,
+                            device=dev).to(dtype)[:, :cols]
+
+            def kernel():
+                return activations._softplus_grad_grad(gg, g, x, 100.0,
+                                                       True, True)
+
+            def plain():
+                return activations._softplus_grad_grad_plain(gg, g, x, 100.0)
+            before = kernels.LAUNCHES["softplus_grad_grad"]
+            got, want = kernel(), plain()
+            launched = kernels.LAUNCHES["softplus_grad_grad"] - before
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            if launched != 1 or not all(
+                    torch.equal(a.view(bits), b.view(bits))
+                    for a, b in zip(got, want)):
+                raise AssertionError(f"softplus second derivative {dtype} "
+                                     f"({rows}, {cols}): {launched} "
+                                     "launches, or it differs from its "
+                                     "plain form")
+            del got, want
+            n_bytes = 5 * x.numel() * x.element_size()
+            r = dict(dtype=str(dtype), shape=(rows, cols),
+                     g_contiguous=g.is_contiguous(),
+                     ms=cuda_ms(torch, kernel), plain_ms=cuda_ms(torch, plain),
+                     bound_ms=1e3 * n_bytes / mem_rate, bytes=n_bytes)
+            out.append(r)
+            log("kernels", f"softplus second derivative {(rows, cols)} "
+                f"{dtype} (g contiguous: {r['g_contiguous']}): kernel "
+                f"bitwise its plain form; {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({n_bytes} B at {mem_rate:.3g} B/s, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}%) on {card_name}")
+    return out
 
 
 def build_main_shape(torch, octa_build, grid, base, octa_ids, card_name):
@@ -1443,7 +1514,8 @@ def cli_commands(torch, np, kernels, smi, root):
             "valid.skip=false", "valid.epoch_interval=0",
             "valid.index=0", f"valid.dtumvs.ref_dir={ref}", *CLI_CHAMFER,
             *CLI_EXTRACT], {"scatter_add_rows": 24,
-                            "adam_update": 12 * ADAM_PER_STEP})
+                            "adam_update": 12 * ADAM_PER_STEP,
+                            "softplus_grad_grad": 12 * SOFTPLUS_PER_STEP})
     finally:
         timer.restore()
         load_timer.restore()
@@ -1523,7 +1595,8 @@ def cli_commands(torch, np, kernels, smi, root):
     run("cli_g256_bf16", "train", prod + [
         f"data_path={scene}", "train.epoch=1", "valid.skip=true"],
         {"scatter_add_rows": 4, "fold_octa_cotangent": 4,
-         "adam_update": 4 * ADAM_PER_STEP})
+         "adam_update": 4 * ADAM_PER_STEP,
+         "softplus_grad_grad": 4 * SOFTPLUS_PER_STEP})
     ck = os.path.join(monitor, "checkpoints")
     two = os.path.join(root, "two_views", "scan1")
     cli.main(["make-synthetic", two, "2", str(CLI_RES), str(CLI_RES)])
@@ -1666,7 +1739,8 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
         torch, kernels, trainer, card_name,
         dict(dict.fromkeys(kernels.LAUNCHES, 0), scatter_add_rows=len(want),
              lanczos_voxel_gather=GATHERS_PER_STEP[preset],
-             adam_update=ADAM_PER_STEP))
+             adam_update=ADAM_PER_STEP,
+             softplus_grad_grad=SOFTPLUS_PER_STEP))
     ms_step = epoch_ms[-1] / trainer.ds.iters_per_epoch
     log("encodings", f"{preset} ({grid_type}): launches {launches}; epoch 2 "
         f"{ms_step:.1f} ms/step (host clock, synchronized); peak memory "
@@ -1744,7 +1818,8 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
                                    "valid.skip=true"],
             {"scatter_add_rows": 4 * len(per_step),
              "lanczos_voxel_gather": 4 * GATHERS_PER_STEP[preset],
-             "adam_update": 4 * ADAM_PER_STEP})
+             "adam_update": 4 * ADAM_PER_STEP,
+             "softplus_grad_grad": 4 * SOFTPLUS_PER_STEP})
         losses = read_series(os.path.join(f"{mon}_scan1",
                                           "Training-loss.series.txt"))
         if len(losses) != 4:
@@ -2122,6 +2197,7 @@ def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     want["scatter_add_rows"] = 2 * S * steps
     want["adam_update"] = ADAM_PER_STEP * S * steps
+    want["softplus_grad_grad"] = SOFTPLUS_PER_STEP * S * steps
     if launches != want:
         raise AssertionError(f"multi-scene launches {launches}, want {want}")
     if graph.captures != captures or graph.replays - replays != steps:
@@ -3118,7 +3194,8 @@ def lanczos_phase(torch, kernels, grid, card_name):
         custom_step = one_step(trainer)
     finally:
         grid.lanczos_voxel_gather = real
-    want = dict(none, scatter_add_rows=3, lanczos_voxel_gather=4)
+    want = dict(none, scatter_add_rows=3, lanczos_voxel_gather=4,
+                softplus_grad_grad=SOFTPLUS_PER_STEP)
     if custom_step != want:
         raise AssertionError(f"custom step: launches {custom_step}, want "
                              f"{want}")
@@ -3169,7 +3246,8 @@ def lanczos_phase(torch, kernels, grid, card_name):
 
     trainer = make_trainer(torch, tag="monitor_lanczos_default")
     default_step = one_step(trainer)
-    want = dict(none, scatter_add_rows=2)
+    want = dict(none, scatter_add_rows=2,
+                softplus_grad_grad=SOFTPLUS_PER_STEP)
     if default_step != want:
         raise AssertionError(f"default step: launches {default_step}, want "
                              f"{want}")
@@ -3348,6 +3426,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     softplus_grad_check(torch, card_name)
+    softplus_record = dict(name="softplus_grad_grad", route="cuda",
+                           at_main_shape=softplus_grad_grad_check(
+                               torch, card_name))
     log("kernels", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3464,7 +3545,7 @@ def main() -> int:
     # phase 11's training paths', phase 12's step from the imported
     # checkpoint and phase 13's captured steps
     records = [scatter_record, fold_record, build_record, lanczos_record,
-               adam_record]
+               adam_record, softplus_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],
                           "render_validate_extract": rendered[path][r["name"]]}

@@ -6,12 +6,14 @@ double backward needs.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from ndjir_torch import kernels
 
 # above beta x = 20 softplus returns x, as PyTorch's fused op does
 _THRESHOLD = 20.0
@@ -81,6 +83,91 @@ def _softplus_grad(g: torch.Tensor, x: torch.Tensor,
     return _softplus_grad_kernel(beta)(g, x)
 
 
+def _softplus_grad_grad_plain(gg: torch.Tensor, g: torch.Tensor,
+                              x: torch.Tensor, beta: float,
+                              need_dg: bool = True, need_dx: bool = True):
+    """(dg, dx), the derivatives of g * softplus_beta'(x) in g and in x
+    under the cotangent gg, each None where not needed: dg is
+    :func:`_softplus_grad` of gg; dx is gg g beta sigmoid(beta x) (1 -
+    sigmoid(beta x)) below the threshold and 0 above it, as PyTorch's ops
+    compute it one after another (each rounding to the dtype)."""
+    dg = _softplus_grad(gg, x, beta) if need_dg else None
+    dx = None
+    if need_dx:
+        bx = x * beta
+        dx = torch.ops.aten.sigmoid_backward(gg * g, bx.sigmoid()) \
+            * (bx < _THRESHOLD).to(gg.dtype) * beta
+    return dg, dx
+
+
+# the second derivative's kernel (csrc/softplus_grad_grad.cu): its dtypes
+_GRAD_GRAD = "softplus_grad_grad"
+_GRAD_GRAD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _row_stride(t: torch.Tensor) -> Optional[int]:
+    """The distance between t's rows (along its last axis) where each row
+    is contiguous and the rows lie at one stride: a contiguous tensor, or
+    a slice of one along the last axis (the cotangent that the skip
+    concatenation hands the layer before it).  None for any other
+    layout."""
+    cols = t.shape[-1] if t.dim() else 1
+    if t.is_contiguous():
+        return cols
+    if t.stride(-1) != 1:
+        return None
+    try:
+        ld = t.view(-1, cols).stride(0)
+    except RuntimeError:
+        return None
+    return ld if ld >= cols else None
+
+
+def _kernel_operands(gg: torch.Tensor, g: Optional[torch.Tensor],
+                     x: torch.Tensor):
+    """(gg, g, x, g's row stride) as the second derivative's kernel reads
+    them (g None where dx is not wanted): gg and x contiguous, g
+    contiguous or rows at one stride (:func:`_row_stride`), each copied
+    only where it is not.  All of one shape and of one of the kernel's
+    dtypes; anything else raises, as the first derivative does."""
+    ts = (gg, x) if g is None else (gg, g, x)
+    if x.dtype not in _GRAD_GRAD_DTYPES \
+            or any(t.dtype != x.dtype or t.shape != x.shape for t in ts):
+        raise TypeError(
+            f"softplus second derivative on the card: no kernel for "
+            f"{[(t.dtype, tuple(t.shape)) for t in ts]} (it takes one shape "
+            f"and one of {tuple(_GRAD_GRAD_DTYPES)} for all)")
+    cols = x.shape[-1] if x.dim() else 1
+    ld = cols
+    if g is not None:
+        ld = _row_stride(g)
+        if ld is None:
+            g, ld = g.contiguous(), cols
+    return gg.contiguous(), g, x.contiguous(), ld
+
+
+def _softplus_grad_grad(gg: torch.Tensor, g: torch.Tensor, x: torch.Tensor,
+                        beta: float, need_dg: bool, need_dx: bool):
+    """:func:`_softplus_grad_grad_plain`'s (dg, dx), bitwise.  On the card
+    one launch of the hand-written kernel (counted in
+    ``kernels.LAUNCHES``), f32 or bf16 (:func:`_kernel_operands`); CPU
+    tensors take the plain form."""
+    if not x.is_cuda:
+        return _softplus_grad_grad_plain(gg, g, x, beta, need_dg, need_dx)
+    gg, g, x, ld = _kernel_operands(gg, g if need_dx else None, x)
+    dg = torch.empty_like(x) if need_dg else None
+    dx = torch.empty_like(x) if need_dx else None
+    cols = x.shape[-1] if x.dim() else 1
+    kernels.launch(_GRAD_GRAD, _GRAD_GRAD, x.device,
+                   _GRAD_GRAD_DTYPES[x.dtype], gg.data_ptr(),
+                   g.data_ptr() if need_dx else None, x.data_ptr(),
+                   dg.data_ptr() if need_dg else None,
+                   dx.data_ptr() if need_dx else None, x.numel(), cols, ld,
+                   beta, _THRESHOLD)
+    kernels.count(_GRAD_GRAD)
+    return dg, dx
+
+
 class _Softplus(torch.autograd.Function):
     """softplus_beta(x), saving only x; its derivative is
     :class:`_SoftplusGrad`."""
@@ -102,7 +189,8 @@ class _SoftplusGrad(torch.autograd.Function):
     more for the eikonal double backward: in g, the same first derivative;
     in x, beta sigmoid(beta x) (1 - sigmoid(beta x)) below the threshold
     and 0 above it, PyTorch's own second derivative of softplus, at x = 0
-    too (beta / 4, as the reference's)."""
+    too (beta / 4, as the reference's).  Both in one pass on the card
+    (:func:`_softplus_grad_grad`)."""
 
     @staticmethod
     def forward(ctx, g: torch.Tensor, x: torch.Tensor,
@@ -115,14 +203,8 @@ class _SoftplusGrad(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gg: torch.Tensor):
         g, x = ctx.saved_tensors
-        beta = ctx.beta
-        dg = _softplus_grad(gg, x, beta) if ctx.needs_input_grad[0] \
-            else None
-        dx = None
-        if ctx.needs_input_grad[1]:
-            bx = x * beta
-            dx = torch.ops.aten.sigmoid_backward(gg * g, bx.sigmoid()) \
-                * (bx < _THRESHOLD).to(gg.dtype) * beta
+        dg, dx = _softplus_grad_grad(gg, g, x, ctx.beta,
+                                     *ctx.needs_input_grad[:2])
         return dg, dx, None
 
 

@@ -360,7 +360,8 @@ def test_octa_gather_backward_on_the_card_matches_cpu(cuda):
                                 "fold_octa_cotangent": 1,
                                 "build_octa_table": 0,
                                 "lanczos_voxel_gather": 0,
-                                "adam_update": 0}
+                                "adam_update": 0,
+                                "softplus_grad_grad": 0}
     # f32 sums in another order, each rounded once to bf16: one ulp, and
     # f32 rounding (1e-6 of the largest) where a sum cancels to near zero
     want = grads[0].double()
@@ -606,6 +607,176 @@ def test_softplus_grad_refuses_a_dtype_without_kernel(cuda):
         activations._softplus_grad(x.double(), x.double(), 100.0)
     with pytest.raises(TypeError):
         activations._softplus_grad(x.bfloat16(), x, 100.0)
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _softplus_operands(dtype, beta, layout, device):
+    """gg, g and x of shape (300, 213) (not a multiple of 16 bytes): x
+    across the threshold, at +-0, NaN, +-inf and subnormals, gg and g with
+    NaNs.  ``layout``: all contiguous; ``g_rows``, g a slice of 256-wide
+    rows (the skip concatenation's cotangent); ``unaligned``, every
+    operand one element off 16 bytes."""
+    gen = torch.Generator().manual_seed(5)
+    n = 300 * 213
+    x = torch.randn(n, generator=gen) * 3 / beta
+    x[:64] = torch.linspace(19.5 / beta, 20.5 / beta, 64)
+    x[64:76] = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                             -float("inf"), 1e-40, -1e-40, 1e-30, -1e-30,
+                             3e-38, 1e-45, -1e-45])
+    gg = torch.randn(n, generator=gen)
+    gg[100:104] = float("nan")
+    gg[104:106] = torch.tensor([float("inf"), 0.0])
+    wide = torch.randn(300, 256, generator=gen)
+    wide.view(-1)[200:204] = float("nan")
+
+    def put(t):
+        t = t.to(dtype).to(device)
+        if layout != "unaligned":
+            return t.contiguous()
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+    g = wide.to(dtype).to(device)[:, :213] if layout == "g_rows" \
+        else put(wide[:, :213])
+    return put(gg.view(300, 213)), g, put(x.view(300, 213))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "g_rows", "unaligned"])
+@pytest.mark.parametrize("needs", [(True, True), (True, False),
+                                   (False, True)], ids=["both", "dg", "dx"])
+@pytest.mark.parametrize("beta", [1.0, 100.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_softplus_grad_grad_kernel_matches_plain_version(cuda, dtype, beta,
+                                                         needs, layout):
+    """The softplus second derivative's one-pass kernel against its plain
+    form (the jiterator kernel for dg, PyTorch's eight ops for dx),
+    bitwise, in one launch."""
+    from ndjir_torch.ops import activations
+
+    gg, g, x = _softplus_operands(dtype, beta, layout, cuda)
+    kernels.reset_launches()
+    got = activations._softplus_grad_grad(gg, g, x, beta, *needs)
+    assert kernels.LAUNCHES["softplus_grad_grad"] == 1
+    want = activations._softplus_grad_grad_plain(gg, g, x, beta, *needs)
+    for a, b, need in zip(got, want, needs):
+        if not need:
+            assert a is None and b is None
+            continue
+        assert a.dtype == dtype and a.shape == x.shape and a.is_contiguous()
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_softplus_grad_grad_refuses_a_dtype_without_kernel(cuda):
+    """On the card the kernel takes every call: f64 and f16, which it has
+    no instantiation for, raise for either output; a transposed gg is read
+    through a contiguous copy, in one launch, bitwise the plain form."""
+    from ndjir_torch.ops import activations
+
+    gg, g, x = _softplus_operands(torch.float32, 100.0, "contiguous", cuda)
+    for dtype in (torch.float64, torch.float16):
+        for needs in [(True, True), (True, False), (False, True)]:
+            with pytest.raises(TypeError):
+                activations._softplus_grad_grad(gg.to(dtype), g.to(dtype),
+                                                x.to(dtype), 100.0, *needs)
+    kernels.reset_launches()
+    got = activations._softplus_grad_grad(gg.t().contiguous().t(), g, x,
+                                          100.0, True, True)
+    assert kernels.LAUNCHES["softplus_grad_grad"] == 1
+    want = activations._softplus_grad_grad_plain(gg, g, x, 100.0)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def _eikonal_grads(conf, device):
+    """The geometric MLP's parameter gradients of an eikonal loss (a
+    double backward) and an SDF term at 4096 points, from seed 0."""
+    from ndjir_torch.models.fields import geometric_apply, init_model
+    from ndjir_torch.train.optim import tree_leaves_with_path
+
+    params = init_model(conf, seed=0, device=device)["geometric-network"]
+    leaves = [t.requires_grad_() for _, t in tree_leaves_with_path(params)]
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = (torch.rand(4096, 3, generator=gen, device=device) - 0.5) * 1.2
+    x.requires_grad_()
+    sdf = geometric_apply(params, x, conf)[0]
+    (grad,) = torch.autograd.grad(sdf.sum(), x, create_graph=True)
+    loss = (grad.norm(dim=-1) - 1).square().mean() + sdf.abs().mean()
+    return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mlp_dtype", ["float32", "bfloat16"])
+def test_eikonal_double_backward_kernel_equals_plain(cuda, mlp_dtype,
+                                                     monkeypatch):
+    """The geometric MLP's (8 layers, a skip) parameter gradients under the
+    eikonal double backward: one kernel launch a hidden layer (7), bitwise
+    those of the plain form run in its place."""
+    from ndjir_torch.ops import activations
+
+    conf = _tiny_conf([f"precision.mlp_dtype={mlp_dtype}"])
+    kernels.reset_launches()
+    fast = _eikonal_grads(conf, cuda)
+    assert kernels.LAUNCHES["softplus_grad_grad"] == 7
+    monkeypatch.setattr(activations, "_softplus_grad_grad",
+                        activations._softplus_grad_grad_plain)
+    kernels.reset_launches()
+    plain = _eikonal_grads(conf, cuda)
+    assert kernels.LAUNCHES["softplus_grad_grad"] == 0
+    assert len(fast) == len(plain) and fast[0] is not None
+    for a, b in zip(fast, plain):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mlp_dtype", ["float32", "bfloat16"])
+def test_captured_step_replays_seven_second_derivatives(cuda, mlp_dtype,
+                                                        monkeypatch):
+    """A captured default step (8-layer geometric MLP) holds 7 launches of
+    the second derivative's kernel: each replay adds 7 to ``LAUNCHES``.
+    Its trained parameters and monitors equal, bitwise, those of the same
+    captured training with the plain form in the kernel's place.  A
+    process's first captured training after an eikonal double backward
+    lands ulps from its later ones with either form (``PERF.md`` §6,
+    PR 19), so a first training warms up and is not compared."""
+    from ndjir_torch.models.fields import init_model
+    from ndjir_torch.ops import activations
+    from ndjir_torch.render.renderer import make_mc_cdfs
+    from ndjir_torch.train.graph import CapturedStep
+    from ndjir_torch.train.optim import init_optimizer, tree_leaves_with_path
+    from ndjir_torch.train.trainer import train_step, train_steps
+
+    conf = _tiny_conf([f"precision.mlp_dtype={mlp_dtype}"])
+    B, R, K = conf.train.batch_size, conf.train.n_rays, 4
+    batches = _tiny_batches(conf, (K,), cuda)
+    cdfs = make_mc_cdfs(conf, B, R, device=cuda)
+    sched = (0.5, 1.0, 1e-3, 1e-3)
+
+    def train(launches):
+        p = init_model(conf, seed=0, device=cuda)
+        o = init_optimizer(p)
+        graph = CapturedStep(train_step, conf)
+        kernels.reset_launches()
+        mons = train_steps(p, o, *batches, *sched, 0, conf, cdfs=cdfs,
+                           graph=graph)
+        assert graph.captures == 1 and graph.replays == K - 1
+        assert graph.tally["softplus_grad_grad"] == launches
+        assert kernels.LAUNCHES["softplus_grad_grad"] == launches * K
+        graph.release()
+        return [t for _, t in tree_leaves_with_path(p)], mons
+
+    train(7)
+    fast, fast_mons = train(7)
+    monkeypatch.setattr(activations, "_softplus_grad_grad",
+                        activations._softplus_grad_grad_plain)
+    plain, plain_mons = train(0)
+    assert len(fast) == len(plain)
+    assert all(torch.equal(a, b) for a, b in zip(fast, plain))
+    assert fast_mons.keys() == plain_mons.keys()
+    assert all(torch.equal(fast_mons[k], plain_mons[k]) for k in fast_mons)
 
 
 _LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")

@@ -73,3 +73,4 @@ def test_launch_passes_the_stream_and_raises_on_a_cuda_error(name,
     kernels.count(name, 3)
     assert kernels.LAUNCHES == dict(dict.fromkeys(kernels.LAUNCHES, 0),
                                     **{name: 3})
+
