@@ -554,21 +554,25 @@ def query_voxel_hash(x: torch.Tensor, feature: torch.Tensor, G0: int = 16,
                      vmax: Vec3 = DEFAULT_MAX) -> torch.Tensor:
     """Multi-resolution hash query: (..., 3) -> (..., D*L), channel
     d*L + l (reference grid.py:1073).  Vectorized over levels; the 8 x L
-    lookups read the (n_params / D, D) view in ONE gather."""
-    xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
-                                       vmin, vmax)
-    xyz0, xyz1 = _corners(xyz, g1b)
-    w0, w1 = _weights(xyz, xyz0, xyz1, "linear")
-    i0, i1 = xyz0.detach().long(), xyz1.detach().long()
-    idx_list, w_list = [], []
-    for ix, wx in ((i0, w0), (i1, w1)):
-        for iy, wy in ((i0, w0), (i1, w1)):
-            for iz, wz in ((i0, w0), (i1, w1)):
-                idx_list.append(row0s + _hash_index(
-                    ix[..., 0], iy[..., 1], iz[..., 2], Ts))
-                w_list.append(wx[..., 0] * wy[..., 1] * wz[..., 2])
-    acc = _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
-    return _levels_to_channels(acc, x)
+    lookups read the (n_params / D, D) view in ONE gather.  The forward is
+    a program span, ``grid.hash_query``, carrying its ``points``,
+    ``levels`` and table ``rows`` read."""
+    n = x.numel() // 3
+    with annotate("grid.hash_query", points=n, levels=L, rows=n * 8 * L):
+        xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
+                                           vmin, vmax)
+        xyz0, xyz1 = _corners(xyz, g1b)
+        w0, w1 = _weights(xyz, xyz0, xyz1, "linear")
+        i0, i1 = xyz0.detach().long(), xyz1.detach().long()
+        idx_list, w_list = [], []
+        for ix, wx in ((i0, w0), (i1, w1)):
+            for iy, wy in ((i0, w0), (i1, w1)):
+                for iz, wz in ((i0, w0), (i1, w1)):
+                    idx_list.append(row0s + _hash_index(
+                        ix[..., 0], iy[..., 1], iz[..., 2], Ts))
+                    w_list.append(wx[..., 0] * wy[..., 1] * wz[..., 2])
+        acc = _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+        return _levels_to_channels(acc, x)
 
 
 def query_voxel_hash_lanczos(x: torch.Tensor, feature: torch.Tensor,
@@ -578,20 +582,24 @@ def query_voxel_hash_lanczos(x: torch.Tensor, feature: torch.Tensor,
                              vmax: Vec3 = DEFAULT_MAX, a: int = 2
                              ) -> torch.Tensor:
     """Lanczos-a hash query, (2a)^3 taps a level (reference
-    grid.py:1135)."""
-    xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
-                                       vmin, vmax)
-    pos, coef = _lanczos_taps(xyz, g1b, a)
-    idx_list, w_list = [], []
-    for i in range(2 * a):
-        for j in range(2 * a):
-            wij = coef[0][i] * coef[1][j]
-            for k in range(2 * a):
-                idx_list.append(row0s + _hash_index(
-                    pos[0][i], pos[1][j], pos[2][k], Ts))
-                w_list.append(wij * coef[2][k])
-    acc = _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
-    return _levels_to_channels(acc, x)
+    grid.py:1135); its forward is the span ``grid.hash_query`` as
+    :func:`query_voxel_hash`'s, with (2a)^3 L rows a point."""
+    n = x.numel() // 3
+    with annotate("grid.hash_query", points=n, levels=L,
+                  rows=n * (2 * a) ** 3 * L):
+        xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
+                                           vmin, vmax)
+        pos, coef = _lanczos_taps(xyz, g1b, a)
+        idx_list, w_list = [], []
+        for i in range(2 * a):
+            for j in range(2 * a):
+                wij = coef[0][i] * coef[1][j]
+                for k in range(2 * a):
+                    idx_list.append(row0s + _hash_index(
+                        pos[0][i], pos[1][j], pos[2][k], Ts))
+                    w_list.append(wij * coef[2][k])
+        acc = _gather_weighted_sum(feature.reshape(-1, D), idx_list, w_list)
+        return _levels_to_channels(acc, x)
 
 
 # ---------------------------------------------------------------------------

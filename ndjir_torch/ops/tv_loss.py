@@ -28,6 +28,7 @@ from ndjir_torch.ops.lattice import (
     _vec,
 )
 from ndjir_torch.ops.scatter import gather_rows
+from ndjir_torch.utils.profiling import annotate
 
 
 class _TVSqrt(torch.autograd.Function):
@@ -126,20 +127,24 @@ def tv_loss_voxel_hash(x: torch.Tensor, feature: torch.Tensor, G0: int,
                        vmin, vmax, sym_backward: bool = True
                        ) -> torch.Tensor:
     """(..., 3), (n_params,) -> (..., D*L), channel d*L + l; the four
-    corners of every level from one gather (reference tv_loss.py:142)."""
-    xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
-                                       vmin, vmax)
-    xyz0, xyz1 = _corners(xyz, g1b)
-    (x0, y0, z0) = xyz0.detach().long().unbind(-1)
-    (x1, y1, z1) = xyz1.detach().long().unbind(-1)
-    fs = _gather4(feature.reshape(-1, D), [
-        row0s + _hash_index(x0, y0, z0, Ts),
-        row0s + _hash_index(x1, y0, z0, Ts),
-        row0s + _hash_index(x0, y1, z0, Ts),
-        row0s + _hash_index(x0, y0, z1, Ts)])  # each (..., L, D)
-    f000 = _base(fs[0], sym_backward)
-    s = (fs[1] - f000) ** 2 + (fs[2] - f000) ** 2 + (fs[3] - f000) ** 2
-    return _levels_to_channels(tv_sqrt(s), x)
+    corners of every level from one gather (reference tv_loss.py:142).
+    The forward is a program span, ``grid.hash_tv``, carrying its
+    ``points``, ``levels`` and table ``rows`` read."""
+    n = x.numel() // 3
+    with annotate("grid.hash_tv", points=n, levels=L, rows=n * 4 * L):
+        xyz, g1b, Ts, row0s = _hash_levels(x, G0, growth_factor, T0, L, D,
+                                           vmin, vmax)
+        xyz0, xyz1 = _corners(xyz, g1b)
+        (x0, y0, z0) = xyz0.detach().long().unbind(-1)
+        (x1, y1, z1) = xyz1.detach().long().unbind(-1)
+        fs = _gather4(feature.reshape(-1, D), [
+            row0s + _hash_index(x0, y0, z0, Ts),
+            row0s + _hash_index(x1, y0, z0, Ts),
+            row0s + _hash_index(x0, y1, z0, Ts),
+            row0s + _hash_index(x0, y0, z1, Ts)])  # each (..., L, D)
+        f000 = _base(fs[0], sym_backward)
+        s = (fs[1] - f000) ** 2 + (fs[2] - f000) ** 2 + (fs[3] - f000) ** 2
+        return _levels_to_channels(tv_sqrt(s), x)
 
 
 def grid_tv_loss(encoding, params, x: torch.Tensor,

@@ -2,8 +2,9 @@
 outside a profiler; under one, nested spans with their parent, step and
 counts on the profiler's clock; the trainer's loop and step recorded per
 epoch, eagerly and in calls of two steps; the octa grid's gather, backward
-and table build at the production precision; the Chrome trace of
-``profiling.trace()`` holding them (CPU, ``tiny_test`` widths)."""
+and table build at the production precision; the hash grid's queries and
+TV map; the Chrome trace of ``profiling.trace()`` holding them (CPU,
+``tiny_test`` widths)."""
 
 import json
 import os
@@ -187,6 +188,53 @@ def test_octa_grid_spans_at_the_production_precision(tmp_path):
         with_octa_table(tr.params, c)
     (build,) = [s for s in profiling.spans() if s.name == "grid.octa_build"]
     assert build.counts == {"rows": G ** 3}
+
+
+HASH = ("geometric_network.voxel.type=voxel_hash",
+        "geometric_network.voxel.hash_base_grid_size=8",
+        "geometric_network.voxel.hash_table_size=512",
+        "geometric_network.voxel.hash_levels=4")
+
+
+@pytest.mark.parametrize("grid_type", ["voxel_hash", "voxel"])
+def test_hash_grid_spans(tmp_path, grid_type):
+    """Eager steps under the profiler: a ``voxel_hash`` step records in
+    ``step.render`` two ``grid.hash_query`` spans (x_ptb, then x_fg), each
+    of B R N points, L levels and 8 L rows a point, then one
+    ``grid.hash_tv`` of the x_fg points with 4 L rows a point; the
+    proposal sampler's no-grad queries in ``step.sample``, B R n0 points
+    and then B R n1 a round.  A dense voxel's step records none."""
+    tr = _trainer(tmp_path, 1, HASH if grid_type == "voxel_hash" else ())
+    tr.train(stop_epoch=1)
+    assert profiling.spans() == []
+    with cpu_profile():
+        tr.train(stop_epoch=2)
+    spans = profiling.spans()
+    by_id = {s.span_id: s for s in spans}
+    c = tr.conf
+    L = c.geometric_network.voxel.hash_levels
+    rays = c.train.batch_size * c.train.n_rays
+    r = c.renderer
+    n = r.n_samples0 + r.n_upsamples * r.n_samples1
+    proposal = [rays * r.n_samples0] \
+        + [rays * r.n_samples1] * (r.n_upsamples - 1)
+
+    def query(points):
+        return {"points": points, "levels": L, "rows": points * 8 * L}
+
+    steps = list(range(tr.ds.iters_per_epoch, 2 * tr.ds.iters_per_epoch))
+    for step in steps:
+        mine = [(s.name, by_id[s.parent_id].name, s.counts) for s in spans
+                if s.step == step and s.name.startswith("grid.hash")]
+        if grid_type == "voxel":
+            assert mine == []
+            continue
+        assert mine == [("grid.hash_query", "step.sample", query(k))
+                        for k in proposal] + [
+            ("grid.hash_query", "step.render", query(rays * n)),
+            ("grid.hash_query", "step.render", query(rays * n)),
+            ("grid.hash_tv", "step.render",
+             {"points": rays * n, "levels": L, "rows": rays * n * 4 * L})]
 
 
 def test_chrome_trace_holds_the_spans(tmp_path):
