@@ -67,11 +67,11 @@ other grid encodings' presets through training and the command line
               nonzero (the hash's view with them closed); ``cli train``
               of one epoch each with its exact B1 launches; ``cli
               render`` and ``cli extract`` of triplaneline, which launch
-              no kernel.
+              no kernel but the row gather.
 11. opt-ins and parallel -- at the default config's widths: the
               coarse-grid proposal (three epochs, its G_c=64 snapshot
               refreshed every 4 steps, exactly 2 B1 a step and none in a
-              snapshot, the trained network's snapshot card against CPU,
+              snapshot, 6 row gathers a step and 4 a snapshot, the trained network's snapshot card against CPU,
               ms/step beside phase 5's network proposals); one step with
               ``remat_heads`` against one without (loss, gradients, ms,
               the step's peak memory); three epochs with fresh
@@ -127,6 +127,13 @@ other grid encodings' presets through training and the command line
               exactly 2 launches a step; both timed by CUDA events, issued
               eagerly and replayed from a CUDA graph, beside the bytes
               bound (9 floats an element).
+16. gather -- the row gather, ``GatherRows``' forward: one eager step of
+              the default, custom, voxel_hash and production presets with
+              exactly 6, 3, 7 and 0 launches, every call against
+              ``index_select`` bitwise; the hash's x_fg query, custom's
+              Lanczos query and default's 8-corner query at the step's ids,
+              timed beside the bytes bound and ``index_select``.  Every
+              other phase holds the row gather's launches exactly too.
 
 Monitor files, rendered images, environment maps, the tools' views and the
 full profiles go to ``--out`` (default ``chip_smoke_out/``); the meshes,
@@ -189,17 +196,30 @@ ADAM_PER_STEP = 2
 # (the softplus second derivative: one launch a hidden layer of the 8-layer
 # geometric MLP at the rendered points, f32 and bf16 alike)
 SOFTPLUS_PER_STEP = 7
+# (the row gather, GatherRows' forward: one launch a grid query or TV map
+# whose rows are not read through the octa table or the Lanczos kernel;
+# 6 a step on the default path, whose coarse-grid proposal's 4 reads of
+# the snapshot replace 4 of the network's)
+GATHER = "gather_rows"
+ROW_GATHERS_PER_STEP = {"default": 6, "custom": 3, "triplaneline": 14,
+                        "voxel_hash": 7, "g256_bf16": 0}
 STEP_LAUNCHES = {
     "default": {"scatter_add_rows": 2, "fold_octa_cotangent": 0,
                 "build_octa_table": 0, "lanczos_voxel_gather": 0,
                 "adam_update": ADAM_PER_STEP,
-                "softplus_grad_grad": SOFTPLUS_PER_STEP},
+                "softplus_grad_grad": SOFTPLUS_PER_STEP,
+                GATHER: ROW_GATHERS_PER_STEP["default"]},
     "g256_bf16": {"scatter_add_rows": 1, "fold_octa_cotangent": 1,
                   "build_octa_table": 0, "lanczos_voxel_gather": 0,
                   "adam_update": ADAM_PER_STEP,
-                  "softplus_grad_grad": SOFTPLUS_PER_STEP}}
+                  "softplus_grad_grad": SOFTPLUS_PER_STEP,
+                  GATHER: ROW_GATHERS_PER_STEP["g256_bf16"]}}
 # octa table builds per render_image or extract call, per path
 BUILDS_PER_CALL = {"default": 0, "g256_bf16": 1}
+# row gathers per render chunk (the sampler's and the renderer's queries)
+# and per extraction batch of points (one query), per path
+GATHERS_PER_CHUNK = {"default": 6, "g256_bf16": 0}
+GATHERS_PER_BATCH = {"default": 1, "g256_bf16": 0}
 
 
 def log(phase: str, msg: str) -> None:
@@ -994,10 +1014,11 @@ def step_cotangent(torch, trainer):
     return kept[0]
 
 
-def train_phase(torch, kernels, trainer, card_name, per_step):
+def train_phase(torch, kernels, trainer, card_name, per_step, extra=None):
     """Three epochs, the last at a learning rate above 0; ``per_step`` the
-    launches of each kernel one step must make.  Returns (launches, ms of
-    each epoch, peak bytes allocated)."""
+    launches of each kernel one step must make, ``extra`` those the epochs
+    make besides (the coarse-grid snapshots' row gathers).  Returns
+    (launches, ms of each epoch, peak bytes allocated)."""
     from ndjir_torch.train import schedules
     from ndjir_torch.train.optim import tree_leaves_with_path
 
@@ -1042,7 +1063,8 @@ def train_phase(torch, kernels, trainer, card_name, per_step):
         if n != (len(last) if lr > 0.0 else 0):
             raise AssertionError(f"epoch {e} at lr {lr}: {n} of {len(last)} "
                                  "parameter leaves moved")
-    want = {k: n * steps for k, n in per_step.items()}
+    want = {k: n * steps + (extra or {}).get(k, 0)
+            for k, n in per_step.items()}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     for e in range(epochs):
@@ -1214,17 +1236,28 @@ def render_phase(torch, np, kernels, trainer, path, card_name, full_extract):
     (render + PSNR + a rough-grid extraction), then, with
     ``full_extract``, one ``extract(train=False)`` at the config's
     ``extraction.grid_size``; launch counts set to 0 before and read
-    after each call.  Returns the launches of the three calls, summed."""
+    after each call: the row gathers of each render chunk and extraction
+    batch (the SDF volume's points, then six attributes' at the mesh's
+    vertices).  Returns the launches of the three calls, summed."""
     from ndjir_torch.extract import mc
+    from ndjir_torch.extract.mc import _ATTR_SPECS
     from ndjir_torch.render.image import render_image
 
     conf, ds = trainer.conf, trainer.ds
     builds = BUILDS_PER_CALL[path]
     none = dict.fromkeys(kernels.LAUNCHES, 0)
-    per_call = dict(none, build_octa_table=builds)
     idx = conf.valid.index % ds.size
     dn = 2 ** conf.valid.n_down_samples
     n_chunks = -(-(ds.W // dn) * (ds.H // dn) // conf.valid.n_rays)
+    per_call = dict(none, build_octa_table=builds,
+                    gather_rows=n_chunks * GATHERS_PER_CHUNK[path])
+    B = conf.extraction.batch_size
+
+    def extraction(G, n_verts):
+        """One extraction's launches: its octa build and row gathers."""
+        batches = -(-G ** 3 // B) + len(_ATTR_SPECS) * -(-n_verts // B)
+        return dict(none, build_octa_table=builds,
+                    gather_rows=batches * GATHERS_PER_BATCH[path])
     total = dict(none)
 
     def add(launches):
@@ -1260,8 +1293,6 @@ def render_phase(torch, np, kernels, trainer, path, card_name, full_extract):
     finally:
         timer.restore()
     validate_ms = 1e3 * (time.perf_counter() - t0)
-    add(expect_launches(kernels, f"{path} validate",
-                        {k: 2 * v for k, v in per_call.items()}))
     G = conf.extraction.rough_grid_size
     with open(trainer.monitor_psnr.fpath) as f:
         last = f.read().splitlines()[-1].split()
@@ -1270,6 +1301,8 @@ def render_phase(torch, np, kernels, trainer, path, card_name, full_extract):
     n_bytes, n_verts, n_faces = check_meshes(
         f"{path} validate", trainer.monitor_path,
         f"model_{epoch:05d}_{G}grid_raw")
+    add(expect_launches(kernels, f"{path} validate", {
+        k: v + per_call[k] for k, v in extraction(G, n_verts).items()}))
     png = os.path.join(trainer.monitor_image.dir, f"{epoch:06d}.png")
     if not os.path.getsize(png):
         raise AssertionError(f"{path}: {png} empty")
@@ -1289,10 +1322,11 @@ def render_phase(torch, np, kernels, trainer, path, card_name, full_extract):
         finally:
             timer.restore()
         extract_ms = 1e3 * (time.perf_counter() - t0)
-        add(expect_launches(kernels, f"{path} extract", per_call))
         n_bytes, n_verts, n_faces = check_meshes(
             f"{path} extract", out, f"model_{G}grid_raw",
             keep=("base_color", "implicit_illumination"))
+        add(expect_launches(kernels, f"{path} extract",
+                            extraction(G, n_verts)))
         log("render", f"{path}: extract at {G}^3 ({G ** 3} points in "
             f"batches of {conf.extraction.batch_size}): {extract_ms:.1f} ms; "
             f"{extract_times(timer.ms)}; {n_verts} vertices, {n_faces} "
@@ -1364,6 +1398,19 @@ CLI_VIEWS, CLI_RES = 16, 128
 CLI_CHAMFER = ["valid.dtumvs.downsample_density=0.01"]
 CLI_GRID = 256  # extraction grid: the 512^3 one is timed in phase 7
 CLI_EXTRACT = [f"extraction.grid_size={CLI_GRID}"]
+# the row gathers of the commands that query a grid (6 a step, 6 a render
+# chunk and one an extraction batch of 50,000 points on the default path;
+# a 32x32 view is 3 chunks, a 256^3 volume 336 batches, a mesh of 209,692
+# vertices 5 batches for each of six attributes, raw and trimmed): the
+# default train's 12 steps and its final validation (one view, the volume,
+# the meshes), render of 16 views, extract.  triplaneline: 14 a chunk, 2 a
+# batch; its 2-view render and its extract (79,788 vertices, 2 batches)
+CLI_GATHERS = {
+    ("cli_default", "train"): 12 * 6 + 3 * 6 + 336 + 2 * 6 * 5,
+    ("cli_default", "render"): 16 * 3 * 6,
+    ("cli_default", "extract"): 336 + 2 * 6 * 5,
+    ("cli_triplaneline", "render"): 2 * 3 * 14,
+    ("cli_triplaneline", "extract"): 2 * (336 + 2 * 6 * 2)}
 # a DTU scan as IDR's preprocessed folders hold it: 49 views of 1600x1200
 DTU_VIEWS, DTU_H, DTU_W = 49, 1200, 1600
 
@@ -1515,7 +1562,8 @@ def cli_commands(torch, np, kernels, smi, root):
             "valid.index=0", f"valid.dtumvs.ref_dir={ref}", *CLI_CHAMFER,
             *CLI_EXTRACT], {"scatter_add_rows": 24,
                             "adam_update": 12 * ADAM_PER_STEP,
-                            "softplus_grad_grad": 12 * SOFTPLUS_PER_STEP})
+                            "softplus_grad_grad": 12 * SOFTPLUS_PER_STEP,
+                            GATHER: CLI_GATHERS["cli_default", "train"]})
     finally:
         timer.restore()
         load_timer.restore()
@@ -1548,7 +1596,8 @@ def cli_commands(torch, np, kernels, smi, root):
         f"mean {mean:.6g}; final losses {losses[-4:]}")
     ck = os.path.join(monitor, "checkpoints")
 
-    run("cli_default", "render", base + [f"model_load_path={ck}"], {})
+    run("cli_default", "render", base + [f"model_load_path={ck}"],
+        {GATHER: CLI_GATHERS["cli_default", "render"]})
     rendered = sorted(os.listdir(os.path.join(monitor, "rendered")))
     if len(rendered) != 2 * CLI_VIEWS:
         raise AssertionError(f"{len(rendered)} rendered PNGs, want "
@@ -1565,7 +1614,8 @@ def cli_commands(torch, np, kernels, smi, root):
             f"{k} {v:.6g}" for k, v in evals.items()))
 
     run("cli_default", "extract", base + [f"model_load_path={ck}",
-                                          *CLI_EXTRACT], {})
+                                          *CLI_EXTRACT],
+        {GATHER: CLI_GATHERS["cli_default", "extract"]})
     mesh = os.path.join(monitor,
                         f"mesh_{CLI_GRID}grid_raw_base_color_mesh00.obj")
     for attr, _, _ in _ATTR_SPECS:
@@ -1740,7 +1790,8 @@ def encoding_scatters(torch, kernels, scatter, preset, card_name):
         dict(dict.fromkeys(kernels.LAUNCHES, 0), scatter_add_rows=len(want),
              lanczos_voxel_gather=GATHERS_PER_STEP[preset],
              adam_update=ADAM_PER_STEP,
-             softplus_grad_grad=SOFTPLUS_PER_STEP))
+             softplus_grad_grad=SOFTPLUS_PER_STEP,
+             gather_rows=ROW_GATHERS_PER_STEP[preset]))
     ms_step = epoch_ms[-1] / trainer.ds.iters_per_epoch
     log("encodings", f"{preset} ({grid_type}): launches {launches}; epoch 2 "
         f"{ms_step:.1f} ms/step (host clock, synchronized); peak memory "
@@ -1775,8 +1826,8 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
     ``cli train`` of one
     epoch of 4 steps on a 16-view folder, with its exact B1 launches and
     finite losses.  Last ``cli render`` of 2 views and ``cli extract`` at
-    256^3 of triplaneline, which launch no kernel: no backward, and no
-    octa table for these leaves.  Returns (scatter records, launches by
+    256^3 of triplaneline, which launch no kernel but the row gather
+    (``CLI_GATHERS``): no backward, and no octa table for these leaves.  Returns (scatter records, launches by
     command per preset path)."""
     from ndjir_torch import cli
 
@@ -1819,7 +1870,8 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
             {"scatter_add_rows": 4 * len(per_step),
              "lanczos_voxel_gather": 4 * GATHERS_PER_STEP[preset],
              "adam_update": 4 * ADAM_PER_STEP,
-             "softplus_grad_grad": 4 * SOFTPLUS_PER_STEP})
+             "softplus_grad_grad": 4 * SOFTPLUS_PER_STEP,
+             GATHER: 4 * ROW_GATHERS_PER_STEP[preset]})
         losses = read_series(os.path.join(f"{mon}_scan1",
                                           "Training-loss.series.txt"))
         if len(losses) != 4:
@@ -1832,20 +1884,21 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
         ck = os.path.join(f"{mon}_scan1", "checkpoints")
         run(path, "render", base + [
             f"data_path={two}", f"monitor_base_path={mon}_two",
-            f"model_load_path={ck}"], {})
+            f"model_load_path={ck}"], {GATHER: CLI_GATHERS[path, "render"]})
         rendered = os.listdir(os.path.join(f"{mon}_two_scan1", "rendered"))
         if len(rendered) != 4:
             raise AssertionError(f"{path} render: {len(rendered)} PNGs, "
                                  "want 4")
         run(path, "extract", base + [f"data_path={scene}",
                                      f"model_load_path={ck}", *CLI_EXTRACT],
-            {})
+            {GATHER: CLI_GATHERS[path, "extract"]})
         n_bytes, n_verts, _ = check_meshes(
             f"{path} extract", f"{mon}_scan1", f"mesh_{CLI_GRID}grid_raw")
         log("encodings", f"{path} render of 2 views "
             f"{times[f'{path} render']:.1f} ms; extract at {CLI_GRID}^3 "
             f"{times[f'{path} extract']:.1f} ms ({n_verts} vertices, "
-            f"{n_bytes} B of raw OBJ); no kernel launched")
+            f"{n_bytes} B of raw OBJ); no kernel launched but the row "
+            "gather")
     log("encodings", "per preset (" + smi + "): " + "; ".join(summary))
     log("encodings", "per command (host clock, synchronized): " + ", ".join(
         f"{k} {v:.1f} ms" for k, v in times.items()))
@@ -1857,8 +1910,12 @@ def encoding_commands(torch, np, kernels, scatter, card_name, smi, root):
 # ---------------------------------------------------------------------------
 
 # the coarse-grid proposal, its G_c=64 snapshot refreshed every 4 steps
+COARSE_REFRESH = 4
 COARSE = ["renderer.proposal_method=coarse_grid",
-          "renderer.proposal_refresh_interval=4"]
+          f"renderer.proposal_refresh_interval={COARSE_REFRESH}"]
+# the row gathers of one snapshot: its G_c^3 = 64^3 lattice points in
+# chunks of 65,536 (render/sampler.py: _SNAPSHOT_CHUNK), one query each
+SNAPSHOT_GATHERS = 64 ** 3 // 65536
 # every n-th lattice point of the snapshot is computed on the CPU too
 SNAPSHOT_STRIDE = 8
 # a full-width step's loss, monitors and gradients computed twice on the
@@ -1906,7 +1963,8 @@ def _compare_steps(torch, a, b, label):
 def coarse_grid_phase(torch, kernels, card_name, net_ms_step):
     """The coarse-grid proposal at the default widths: three epochs of 4
     steps with the G_c=64 snapshot refreshed before steps 0, 4 and 8 (exactly
-    2 B1 a step, none in a snapshot: it is built under ``no_grad``), then
+    2 B1 a step, none in a snapshot: it is built under ``no_grad``; 4 row
+    gathers a snapshot), then
     the trained network's snapshot on the card against the same lattice
     points on the CPU.  Returns (launches, ms/step of epoch 2)."""
     from ndjir_torch.models.fields import geometric_apply
@@ -1927,14 +1985,15 @@ def coarse_grid_phase(torch, kernels, card_name, net_ms_step):
     def step(*a, **k):
         steps.append(1)
         return real_step(*a, **k)
+    iters = trainer.ds.iters_per_epoch
+    want = list(range(0, 3 * iters, conf.renderer.proposal_refresh_interval))
     ttrainer.make_proposal_grid, ttrainer.train_step = counted, step
     try:
         launches, epoch_ms, peak = train_phase(
-            torch, kernels, trainer, card_name, STEP_LAUNCHES["default"])
+            torch, kernels, trainer, card_name, STEP_LAUNCHES["default"],
+            extra={GATHER: len(want) * SNAPSHOT_GATHERS})
     finally:
         ttrainer.make_proposal_grid, ttrainer.train_step = real, real_step
-    iters = trainer.ds.iters_per_epoch
-    want = list(range(0, 3 * iters, conf.renderer.proposal_refresh_interval))
     if refreshes != want or trainer.proposal_grid is None:
         raise AssertionError(f"snapshots refreshed before steps {refreshes}"
                              f", want {want}")
@@ -1945,7 +2004,8 @@ def coarse_grid_phase(torch, kernels, card_name, net_ms_step):
     snap = sampler.make_proposal_grid(trainer.params, conf)
     torch.cuda.synchronize()
     snap_ms = 1e3 * (time.perf_counter() - t0)
-    expect_launches(kernels, "snapshot", dict.fromkeys(kernels.LAUNCHES, 0))
+    expect_launches(kernels, "snapshot", dict(
+        dict.fromkeys(kernels.LAUNCHES, 0), **{GATHER: SNAPSHOT_GATHERS}))
     if snap.shape != (Gc,) * 3 + (1,) or snap.requires_grad \
             or not bool(torch.isfinite(snap).all()):
         raise AssertionError(f"snapshot {tuple(snap.shape)}")
@@ -1965,7 +2025,8 @@ def coarse_grid_phase(torch, kernels, card_name, net_ms_step):
     ms = epoch_ms[-1] / iters
     log("opt-ins", f"coarse_grid: snapshots refreshed before steps "
         f"{refreshes}; G_c={Gc} snapshot of the trained network "
-        f"{snap_ms:.1f} ms, 0 launches, {pts.shape[0]} lattice points card "
+        f"{snap_ms:.1f} ms, {SNAPSHOT_GATHERS} row gathers and no other "
+        f"launch, {pts.shape[0]} lattice points card "
         f"vs CPU within {err:.3g} (largest |sdf| {scale:.3g}); epoch 2 "
         f"{ms:.1f} ms/step (network proposals, phase 5: {net_ms_step:.1f}); "
         f"peak {peak / 2 ** 30:.2f} GiB on {card_name}")
@@ -2198,6 +2259,7 @@ def multi_scene_phase(torch, kernels, card_name, one_scene_peak):
     want["scatter_add_rows"] = 2 * S * steps
     want["adam_update"] = ADAM_PER_STEP * S * steps
     want["softplus_grad_grad"] = SOFTPLUS_PER_STEP * S * steps
+    want[GATHER] = ROW_GATHERS_PER_STEP["default"] * S * steps
     if launches != want:
         raise AssertionError(f"multi-scene launches {launches}, want {want}")
     if graph.captures != captures or graph.replays - replays != steps:
@@ -3047,10 +3109,11 @@ def replay_check(torch, trainer, path, reducer=None):
 
 
 def graph_path(torch, kernels, path, overrides, card_name, per_step,
-               epochs=3, timed=True):
+               epochs=3, timed=True, extra=None):
     """Phase 13 for one path: the sync-debug step, the replay check, then
     the main path (``epochs`` epochs of one ``train_steps`` call each,
-    counts set to 0 just before and read just after) and, when ``timed``,
+    counts set to 0 just before and read just after: ``per_step`` a step,
+    ``extra`` besides, the coarse-grid snapshots') and, when ``timed``,
     one profiled epoch and the sync-free eager step (``steps_per_call:
     1``) timed and profiled beside it.  Returns the launches of the main
     path's run."""
@@ -3084,7 +3147,8 @@ def graph_path(torch, kernels, path, overrides, card_name, per_step,
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
     steps = epochs * iters
-    want = {k: n * steps for k, n in per_step.items()}
+    want = {k: n * steps + (extra or {}).get(k, 0)
+            for k, n in per_step.items()}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, want {want}")
     if graph.replays - replays != steps or graph.captures != captures:
@@ -3156,7 +3220,8 @@ def graph_phase(torch, kernels, card_name):
            for path, overrides in (("default", []), ("g256_bf16", OCTA))}
     out["graph_opt_ins"] = graph_path(
         torch, kernels, "opt_ins", GRAPH_OPT_INS, card_name,
-        STEP_LAUNCHES["default"], epochs=1, timed=False)
+        STEP_LAUNCHES["default"], epochs=1, timed=False,
+        extra={GATHER: GRAPH_SPC // COARSE_REFRESH * SNAPSHOT_GATHERS})
     return out
 
 
@@ -3195,7 +3260,8 @@ def lanczos_phase(torch, kernels, grid, card_name):
     finally:
         grid.lanczos_voxel_gather = real
     want = dict(none, scatter_add_rows=3, lanczos_voxel_gather=4,
-                softplus_grad_grad=SOFTPLUS_PER_STEP)
+                softplus_grad_grad=SOFTPLUS_PER_STEP,
+                gather_rows=ROW_GATHERS_PER_STEP["custom"])
     if custom_step != want:
         raise AssertionError(f"custom step: launches {custom_step}, want "
                              f"{want}")
@@ -3247,7 +3313,8 @@ def lanczos_phase(torch, kernels, grid, card_name):
     trainer = make_trainer(torch, tag="monitor_lanczos_default")
     default_step = one_step(trainer)
     want = dict(none, scatter_add_rows=2,
-                softplus_grad_grad=SOFTPLUS_PER_STEP)
+                softplus_grad_grad=SOFTPLUS_PER_STEP,
+                gather_rows=ROW_GATHERS_PER_STEP["default"])
     if default_step != want:
         raise AssertionError(f"default step: launches {default_step}, want "
                              f"{want}")
@@ -3379,6 +3446,100 @@ def adam_phase(torch, kernels, card_name):
                 plain_ms=ms["plain"][1], plain_eager_ms=ms["plain"][0],
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None,
                 leaves=len(leaves), elements=elems)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the row gather
+# ---------------------------------------------------------------------------
+
+# the calls timed, one a preset: the ids of its first query of this many
+GATHER_SHAPES = {"voxel_hash": (128 * STEP_POINTS, "hash x_fg query"),
+                 "custom": (64 * STEP_POINTS, "Lanczos query"),
+                 "default": (8 * STEP_POINTS, "8-corner query")}
+
+
+def gather_phase(torch, kernels, scatter, card_name):
+    """The forward of ``GatherRows``, the row gather
+    (``csrc/gather_rows.cu``): one eager step (loss and gradients) of the
+    default, custom, voxel_hash and production presets, whose row gathers
+    must be exactly ``ROW_GATHERS_PER_STEP``'s, each call held bitwise
+    against ``index_select`` as it runs; then one call of each of the first
+    three (``GATHER_SHAPES``, the step's own table and ids) repeated
+    bitwise and timed beside its bound (the ids read and the rows written
+    once each, each distinct row read once) and ``index_select``, its plain version and the
+    library's one call (device events over back-to-back calls)."""
+    from ndjir_torch.train.trainer import loss_and_grads
+
+    mem_rate, _ = card_peaks(card_name)
+    real = scatter.take_rows
+    step_launches, timed = {}, []
+    for preset, overrides in (("default", ()), ("custom", ()),
+                              ("voxel_hash", ()), ("g256_bf16", OCTA)):
+        config = "default" if preset == "g256_bf16" else preset
+        trainer = make_trainer(torch, overrides, config=config,
+                               tag=f"monitor_gather_{preset}")
+        n_timed, label = GATHER_SHAPES.get(preset, (None, None))
+        calls, kept = [], []
+
+        def checked(table, ids):
+            out = real(table, ids)
+            if not torch.equal(out.view(torch.uint8),
+                               table.index_select(0, ids).view(torch.uint8)):
+                raise AssertionError(f"{preset}: a gather of {ids.numel()} "
+                                     f"ids into {tuple(table.shape)} is not "
+                                     "index_select bitwise")
+            calls.append((ids.numel(), *table.shape))
+            if ids.numel() == n_timed and not kept:
+                kept.append((table.detach(), ids.clone()))
+            return out
+        scatter.take_rows = checked
+        try:
+            kernels.reset_launches()
+            loss_and_grads(trainer.params, *trainer.next_batch(), 0.0, 1.0,
+                           trainer.conf, cdfs=trainer.cdfs)
+            torch.cuda.synchronize()
+        finally:
+            scatter.take_rows = real
+        n = step_launches[preset] = kernels.LAUNCHES[GATHER]
+        if n != ROW_GATHERS_PER_STEP[preset] or len(calls) != n:
+            raise AssertionError(f"{preset}: {n} row gathers in one step "
+                                 f"({len(calls)} calls), want "
+                                 f"{ROW_GATHERS_PER_STEP[preset]}")
+        log("gather", f"{preset}: one eager step, {n} row gathers (ids, "
+            f"rows, D): {calls}, each index_select bitwise")
+        if n_timed is not None:
+            if not kept:
+                raise AssertionError(f"{preset}: no gather of {n_timed} ids")
+            table, ids = kept[0]
+            got = real(table, ids)
+            if not torch.equal(real(table, ids), got):
+                raise AssertionError(f"{preset}: not repeatable bitwise")
+            del got
+            rows, d = table.shape
+            row_bytes = d * table.element_size()
+            n_bytes = (ids.numel() * (ids.element_size() + row_bytes)
+                       + torch.unique(ids).numel() * row_bytes)
+            library_ms = cuda_ms(torch, lambda: table.index_select(0, ids))
+            r = dict(preset=preset, query=label, ids=ids.numel(), rows=rows,
+                     d=d, dtype=str(table.dtype),
+                     ms=cuda_ms(torch, lambda: real(table, ids)),
+                     plain_ms=library_ms, library_ms=library_ms,
+                     bound_ms=1e3 * n_bytes / mem_rate, bytes=n_bytes)
+            timed.append(r)
+            log("gather", f"{preset} {label}: {r['ids']} ids into {rows} x "
+                f"{d} {table.dtype}: kernel {r['ms']:.4f} ms, index_select "
+                f"(plain and library) {library_ms:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({n_bytes} B at {mem_rate:.3g} "
+                f"B/s); bitwise equal, repeatable ({card_name})")
+        del trainer, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(name=GATHER, route="cuda",
+                source="ndjir_torch/csrc/gather_rows.cu", replaces=None,
+                max_abs_err=0.0, bitwise_repeatable=True, ms=timed[0]["ms"],
+                plain_ms=timed[0]["plain_ms"], bound_ms=timed[0]["bound_ms"],
+                bound_by="bytes", library_ms=timed[0]["library_ms"],
+                at_shapes=timed, step_launches=step_launches)
 
 
 def main() -> int:
@@ -3540,12 +3701,16 @@ def main() -> int:
     adam_record = adam_phase(torch, kernels, card_name)
     log("adam", f"done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    gather_record = gather_phase(torch, kernels, scatter, card_name)
+    log("gather", f"done in {time.perf_counter() - t0:.1f} s")
+
     # main-path launches: the training steps' and the render, validation
     # and extraction calls', then each command's of the command line, then
     # phase 11's training paths', phase 12's step from the imported
     # checkpoint and phase 13's captured steps
     records = [scatter_record, fold_record, build_record, lanczos_record,
-               adam_record, softplus_record]
+               adam_record, softplus_record, gather_record]
     for r in records:
         by_path = {path: {"train": launches[path][r["name"]],
                           "render_validate_extract": rendered[path][r["name"]]}

@@ -1,7 +1,7 @@
 """The port's native code: build, load, launch and launch counts.
 
 Each library in ``LIBRARIES`` is one source under ``csrc/`` with plain C
-entry points: the six hand-written CUDA kernels, compiled with ``nvcc`` for
+entry points: the seven hand-written CUDA kernels, compiled with ``nvcc`` for
 Hopper (``sm_90a``), and the mesh library (``marching_cubes.cpp``, the port's
 copy of the JAX package's), compiled with ``g++`` with the flags of the JAX
 package's ``csrc/Makefile`` and wrapped by :mod:`ndjir_torch.extract.native`.
@@ -81,6 +81,8 @@ LIBRARIES: Dict[str, Library] = {
     "softplus_grad_grad": Library("softplus_grad_grad.cu", "nvcc", {
         "softplus_grad_grad": (_i, _p, _p, _p, _p, _p, _ll, _ll, _ll, _f, _f,
                                _p)}),
+    "gather_rows": Library("gather_rows.cu", "nvcc", {
+        "gather_rows": (_p, _p, _i, _p, _ll, _ll, _ll, _i, _p)}),
     "ndjir_mesh": Library("marching_cubes.cpp", "g++", {
         "mc_run": (_pf, _i, _i, _i, _f, ctypes.POINTER(_pf),
                    ctypes.POINTER(_pi), ctypes.POINTER(_i64),

@@ -15,12 +15,16 @@ or raise.
 ``table[ids]``, backward the scatter.  Spatial derivatives never pass
 through it (ids are integer), so the eikonal double backward stays ordinary
 autograd over the interpolation weights, and its own backward is never
-differentiated.
+differentiated.  Its forward (:func:`take_rows`) on a CUDA table is one
+launch of ``csrc/gather_rows.cu``, a byte copy with the bits of
+``index_select``, whose 16-byte rows PyTorch gives a 32-thread block each;
+on a CPU table it is ``index_select``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -387,14 +391,76 @@ def scatter_add_rows_t(ids: torch.Tensor, vals: torch.Tensor,
     raise ValueError(f"no scatter for device {vals.device}")
 
 
+# the row gather (csrc/gather_rows.cu): the vector widths it copies in,
+# widest first
+_GATHER = "gather_rows"
+_GATHER_WIDTHS = (16, 8, 4, 2, 1)
+
+
+def gather_width(row_bytes: int, *addresses: int) -> Tuple[int, int]:
+    """(width, lanes): the widest of 16, 8, 4, 2 and 1 bytes that divides
+    ``row_bytes`` and every address (the table's and the output's), and
+    the vectors of that width a row holds.  A D=4 f32 row is one 16-byte
+    vector, a D=8 f32 row two, a D=3 f32 row three of 4 bytes."""
+    if row_bytes < 1:
+        raise ValueError(f"a row of {row_bytes} bytes")
+    for width in _GATHER_WIDTHS:
+        if row_bytes % width == 0 and all(a % width == 0 for a in addresses):
+            return width, row_bytes // width
+    raise AssertionError("every row width is a whole number of bytes")
+
+
+def _gather_rows_plain(table: torch.Tensor, ids: torch.Tensor
+                       ) -> torch.Tensor:
+    return table.index_select(0, ids)
+
+
+def _gather_rows_cuda(table: torch.Tensor, ids: torch.Tensor
+                      ) -> torch.Tensor:
+    """One launch of the row-gather kernel (counted in ``LAUNCHES``) into a
+    new (n, D) tensor; none for n = 0.  A table that is not contiguous is
+    copied first."""
+    if ids.device != table.device:
+        raise ValueError(f"ids on {ids.device}, table on {table.device}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+    table, ids = table.contiguous(), ids.contiguous()
+    num_rows, d = table.shape
+    n = ids.numel()
+    out = torch.empty(n, d, dtype=table.dtype, device=table.device)
+    row_bytes = d * table.element_size()
+    if n == 0 or row_bytes == 0:
+        return out
+    width, _ = gather_width(row_bytes, table.data_ptr(), out.data_ptr())
+    kernels.launch(_GATHER, _GATHER, table.device, table.data_ptr(),
+                   ids.data_ptr(), int(ids.dtype == torch.int64),
+                   out.data_ptr(), n, num_rows, row_bytes, width)
+    kernels.count(_GATHER)
+    return out
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table.index_select(0, ids)`` for a (M, D) table and (n,) int ids,
+    bitwise: on a CUDA table the row-gather kernel, on a CPU table the
+    plain version (``index_select``).  An id outside [0, M) is a
+    device-side assertion on the card, as under ``index_select``."""
+    if table.ndim != 2 or ids.ndim != 1:
+        raise ValueError(f"table (M, D) and ids (n,) expected, got "
+                         f"{tuple(table.shape)} and {tuple(ids.shape)}")
+    if not table.is_cuda:
+        return _gather_rows_plain(table, ids)
+    return _gather_rows_cuda(table, ids)
+
+
 class GatherRows(torch.autograd.Function):
-    """table (M, D), ids (...,) int -> (..., D); d table = scatter-add."""
+    """table (M, D), ids (...,) int -> (..., D); d table = scatter-add.
+    The forward is :func:`take_rows`."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(ids)
         ctx.num_rows = table.shape[0]
-        return table.index_select(0, ids.reshape(-1)).reshape(
+        return take_rows(table, ids.reshape(-1)).reshape(
             *ids.shape, table.shape[-1])
 
     @staticmethod

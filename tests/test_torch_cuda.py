@@ -361,7 +361,8 @@ def test_octa_gather_backward_on_the_card_matches_cpu(cuda):
                                 "build_octa_table": 0,
                                 "lanczos_voxel_gather": 0,
                                 "adam_update": 0,
-                                "softplus_grad_grad": 0}
+                                "softplus_grad_grad": 0,
+                                "gather_rows": 0}
     # f32 sums in another order, each rounded once to bf16: one ulp, and
     # f32 rounding (1e-6 of the largest) where a sum cancels to near zero
     want = grads[0].double()
